@@ -10,3 +10,9 @@ import sys
 sys.path.insert(0, os.path.dirname(__file__))
 
 import _hypothesis_compat  # noqa: E402,F401
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips without one")
