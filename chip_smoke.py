@@ -7,18 +7,36 @@ Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
 
 1. card: ``nvidia-smi`` name and power limit, device name, kernel build
-   (``nvcc`` for ``sm_90a``) and its seconds;
+   (one ``nvcc`` for ``sm_90a`` per source, all started together) and
+   its seconds;
 2. host setup: RMAT-22 (numpy), its CSR and the packing onto 64 shards;
 3. kernels vs their plain PyTorch versions on the card, at the main
-   path's shapes and at edge cases, with times, bounds and a library
-   yardstick for the reduce;
+   paths' shapes and at edge cases, with times, bounds and library
+   yardsticks: the three route kernels and the histogram kernel; the
+   BSR SpMV kernel at edge cases and at a synthetic shape (its row is
+   timed in phase 9);
 4. BFS on RMAT-22, flat (64 shards) and pod/portal (8 x 8): equal to the
    numpy oracle, no drops, bit-identical to the plain-torch path
    (``route_impl="sort"``), every kernel launched, TEPS and the
    per-round kernel times;
-5. SSSP and WCC on RMAT-18, flat (8) and pod/portal (2 x 4), equal to
-   their oracles.
+5. PageRank on RMAT-22, flat 64, 20 rounds: every vertex within its
+   float32 error bound of the float64 oracle and of the plain-torch
+   path, and within 1e-4 of both relative to the largest rank;
+6. SpMV on RMAT-22, flat 64 and pod/portal 8 x 8: every row within its
+   float32 error bound of the oracle and of the plain-torch path, and
+   within 1e-4 of both relative to the largest |y|;
+7. histogram of 2^28 elements over 4096 bins: one shard (the histogram
+   kernel's local reduce), flat 64 and pod/portal 8 x 8, equal to the
+   oracle;
+8. SSSP, WCC and k-core on RMAT-18, flat (8) and pod/portal (2 x 4),
+   equal to their oracles;
+9. ``spmv_csr`` end to end (the BSR kernel) on an Erdos-Renyi graph of
+   2^14 vertices, against the oracle within the BSR tolerance; then the
+   BSR kernel on the same arrays against its plain version, timed for
+   the kernel table.
 
+Each path of phases 4-7 and 9 runs with every kernel's launch count set
+to 0 just before it and read just after; the kernel table sums them.
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the
 repository around it: without either it exits with code 2.
@@ -33,17 +51,31 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+U = 2.0 ** -24                     # unit roundoff of float32
 SEED = 1
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/route.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"bucket_rank": CSRC + "route.cu", "bucket_scatter": CSRC + "route.cu",
+           "reduce_received": CSRC + "route.cu",
+           "histogram": CSRC + "histogram.cu", "bsr_spmv": CSRC + "spmv.cu"}
 REPLACES = {"bucket_rank": "src/repro/kernels/route.py:120",
             "bucket_scatter": "src/repro/kernels/route.py:282",
-            "reduce_received": "src/repro/kernels/route.py:359"}
+            "reduce_received": "src/repro/kernels/route.py:359",
+            "histogram": "src/repro/kernels/histogram.py:38",
+            "bsr_spmv": "src/repro/kernels/spmv.py:39"}
 # substrings of each wrapper's CUDA kernels, for the profiler's table
 KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
                                 "rank_kernel"),
                 "bucket_scatter": ("fill_kernel", "scatter_kernel"),
                 "reduce_received": ("reduce_init_kernel", "reduce_kernel",
-                                    "reduce_finish_kernel")}
+                                    "reduce_finish_kernel"),
+                "histogram": ("hist_kernel",),
+                "bsr_spmv": ("bsr_spmv_kernel",)}
+CARD = ("cuda", 0)
+SCALE, SMALL_SCALE = 22, 18        # RMAT scales of the main and small graphs
+HIST_N, HIST_BINS = 1 << 28, 4096
+BSR_TIMED = (2048, 32, 128, 2048)  # R, Kb, BS, Ncb
+ER_VERTICES = 1 << 14              # spmv_csr's graph
 
 
 def log(*parts):
@@ -66,8 +98,64 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes):
-    return n_bytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(n_bytes, n_flops=0):
+    """The least time for the work: the larger of the bytes over the HBM
+    rate and the float32 operations over the card's float32 rate."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOP_PER_S) * 1e3
+
+
+def gamma(k):
+    """``gamma_k = k u / (1 - k u)``: a float32 sum of ``k + 1`` terms, in
+    any order or tree, is within ``gamma_k`` times the sum of the terms'
+    magnitudes of their exact sum (Higham, Accuracy and Stability of
+    Numerical Algorithms, 2nd ed., section 4.2). Works on arrays."""
+    return k * U / (1 - k * U)
+
+
+def kernel_modules():
+    from repro_torch.kernels import histogram, route, spmv
+    return route, histogram, spmv
+
+
+def reset_launches():
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def read_launches():
+    counts = {}
+    for mod in kernel_modules():
+        counts.update(mod.LAUNCHES)
+    return counts
+
+
+class MainPath:
+    """One main path's run: every launch count set to 0 on entry, read on
+    exit into ``self.launches``; ``need`` names the kernels the path must
+    have launched."""
+
+    def __init__(self, name, need, totals):
+        self.name, self.need, self.totals = name, need, totals
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        reset_launches()
+        return self
+
+    def __exit__(self, kind, *_):
+        import torch
+        torch.cuda.synchronize()
+        self.launches = read_launches()
+        if kind is not None:
+            return False
+        missing = [k for k in self.need if not self.launches[k]]
+        if missing:
+            raise AssertionError(f"{self.name}: kernels never launched: "
+                                 f"{missing} ({self.launches})")
+        for k, v in self.launches.items():
+            self.totals[k] += v
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +314,7 @@ def main_shape_kernels(route, routing, setup, device):
                                                  n_local, "min"),
              m * (4 + 4) + s * n_local * 4, library_call)]:
         rows[name] = {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": err if name == "reduce_received" else 0.0,
             "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
@@ -282,27 +370,25 @@ def profile_kernels(fn, rounds):
             total / 1e3, wall_ms, top)
 
 
-def run_bfs(g, root, want, setup, layout, fabric, opts, route):
+ROUTE_KERNELS = ("bucket_rank", "bucket_scatter", "reduce_received")
+
+
+def run_bfs(g, root, want, setup, layout, fabric, opts, totals):
     import numpy as np
     import torch
     from repro_torch.sparse.torch_apps import dcra_bfs
-    route.reset_launches()
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    dist, stats = dcra_bfs(g, root, fabric, options=opts, setup=setup)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = dict(route.LAUNCHES)
+    with MainPath(f"BFS {layout}", ROUTE_KERNELS, totals) as path:
+        t0 = time.perf_counter()
+        dist, stats = dcra_bfs(g, root, fabric, options=opts, setup=setup)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not np.array_equal(dist, want):
         raise AssertionError(f"BFS {layout}: distances differ from the "
                              f"oracle at {int((dist != want).sum())} vertices")
     if stats.total_drops:
         raise AssertionError(f"BFS {layout}: {stats.total_drops} drops")
-    if not all(launches.values()):
-        raise AssertionError(f"BFS {layout}: a kernel never launched: "
-                             f"{launches}")
     plain, pstats = dcra_bfs(g, root, fabric, setup=setup,
                              options=opts.with_(route_impl="sort"))
     if not (np.array_equal(plain, dist) and pstats.rounds == stats.rounds
@@ -317,19 +403,461 @@ def run_bfs(g, root, want, setup, layout, fabric, opts, route):
     log(f"bfs {layout}: rounds={stats.rounds} messages="
         f"{stats.messages.tolist()} drops=0 run_s={run_s:.4f} "
         f"TEPS={reached_edges / run_s:.4e} (reached edges {reached_edges}) "
-        f"peak_mem_gb={peak_gb:.2f} launches={launches} "
+        f"peak_mem_gb={peak_gb:.2f} launches={path.launches} "
         f"plain-torch path bit-identical")
+    log_profile(f"bfs {layout}", per_round, device_ms, wall_ms, top)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the histogram and BSR kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+def leaf_edge_cases(device):
+    """Histogram bit-identical to ``plain_histogram`` (ids below 0 and past
+    the last bin present, 2^20 bins for the global-memory branch); BSR
+    within ``2*Kb*BS*2^-24`` of each row's sum of |a*x| of the plain
+    einsum (full float32). Returns the worst BSR error / tolerance."""
+    import numpy as np
+    import torch
+    _, hist, spmv = kernel_modules()
+    rng = np.random.default_rng(SEED)
+    n_cases = 0
+    for n in (0, 1, 997, (1 << 20) + 3):
+        for bins in (1, 61, 4096, 1 << 20):
+            ids = torch.from_numpy(rng.integers(-7, bins + 7, n + 1).astype(
+                np.int32)).to(device)
+            for e in (ids[:n], ids[1:]):          # 16-byte aligned or not
+                if not torch.equal(hist.histogram(e, bins),
+                                   hist.plain_histogram(e, bins)):
+                    raise AssertionError(f"histogram differs at N={n}, "
+                                         f"{bins} bins")
+                n_cases += 1
+    worst = 0.0
+    shapes = [(4, 3, 32, 6), (8, 2, 64, 8), (2, 5, 128, 4), (6, 4, 64, 9),
+              (3, 7, 128, 5)]
+    for r, kb, bs, ncb in shapes:
+        bc = torch.from_numpy(rng.integers(0, ncb, (r, kb)).astype(
+            np.int32)).to(device)
+        blocks = torch.from_numpy((rng.random((r, kb, bs, bs)) - 0.5).astype(
+            np.float32)).to(device)
+        x = torch.from_numpy((rng.random(ncb * bs) - 0.5).astype(
+            np.float32)).to(device)
+        worst = max(worst, bsr_check(spmv, bc, blocks, x))
+    torch.cuda.synchronize()
+    log(f"kernels: histogram {n_cases} cases bit-identical to the plain "
+        f"version; bsr_spmv {len(shapes)} shapes within tolerance of the "
+        f"plain version (worst |err| / tol {worst:.4f})")
+    return worst
+
+
+def bsr_check(spmv, bc, blocks, x):
+    """The kernel against the plain einsum in full float32: worst ratio
+    of |err| to ``2*Kb*BS*2^-24 * sum |a*x|`` over the rows (must be
+    <= 1)."""
+    import torch
+    kb, bs = blocks.shape[1], blocks.shape[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = spmv.plain_bsr_spmv(bc, blocks, x)
+    scale = spmv.plain_bsr_spmv(bc, blocks.abs(), x.abs())
+    got = spmv.bsr_spmv(bc, blocks, x)
+    tol = 2 * kb * bs * 2.0 ** -24 * scale
+    ratio = float(((got - want).abs() / tol.clamp(min=1e-30)).max())
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"bsr_spmv off by {ratio:.3f} x the tolerance "
+                             f"at {tuple(blocks.shape)}")
+    return ratio
+
+
+def leaf_timed(device, ids):
+    """The histogram kernel's row at the main path's shape (the 2^28 ids
+    over 4096 bins); the BSR kernel at the synthetic shape R = 2048,
+    Kb = 32, BS = 128, Ncb = 2048, logged beside the row that
+    :func:`run_spmv_csr` times at the main path's shape."""
+    import torch
+    _, hist, spmv = kernel_modules()
+    rows = {}
+    n = ids.numel()
+    got = hist.histogram(ids, HIST_BINS)
+    if not torch.equal(got, hist.plain_histogram(ids, HIST_BINS)):
+        raise AssertionError("histogram differs at the timed shape")
+    lib = torch.bincount(ids, minlength=HIST_BINS)
+    if not torch.equal(lib.int(), got):
+        raise AssertionError("the bincount yardstick computes another "
+                             "function")
+    n_bytes = 4 * n + 4 * HIST_BINS
+    rows["histogram"] = row(
+        "histogram", 0.0, cuda_ms(lambda: hist.histogram(ids, HIST_BINS), 5),
+        cuda_ms(lambda: hist.plain_histogram(ids, HIST_BINS), 2), n_bytes,
+        cuda_ms(lambda: torch.bincount(ids, minlength=HIST_BINS), 5))
+    log_row(rows["histogram"], f"N={n} bins={HIST_BINS}", n_bytes,
+            "torch.bincount")
+
+    r, kb, bs, ncb = BSR_TIMED
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    blocks = torch.rand(r, kb, bs, bs, generator=gen, device=device) - 0.5
+    # distinct sorted block columns a row, so the library's BSR is valid
+    bc = torch.rand(r, ncb, generator=gen, device=device).argsort(1)[:, :kb]
+    bc = bc.sort(1).values.to(torch.int32).contiguous()
+    x = torch.rand(ncb * bs, generator=gen, device=device) - 0.5
+    synthetic = bsr_row(spmv, bc, blocks, x)
+    log_row(synthetic, f"R={r} Kb={kb} BS={bs} Ncb={ncb} (synthetic shape, "
+            f"no path runs it)", synthetic["n_bytes"], synthetic["lib_note"])
+    del blocks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bsr_bytes_flops(r, kb, bs, ncb):
+    """What ``bsr_spmv`` must move and do: every block read once, x read
+    once (its repeated tiles come from L2 and shared memory), y written
+    once, the block columns read once; two flops a block entry."""
+    return (4 * r * kb * bs * bs + 4 * ncb * bs + 4 * r * bs + 4 * r * kb,
+            2 * r * kb * bs * bs)
+
+
+def bsr_row(spmv, bc, blocks, x):
+    """The BSR kernel against the plain einsum on these inputs, then its
+    time, the plain version's, the bound and the library call's."""
+    r, kb, bs, _ = blocks.shape
+    ncb = x.numel() // bs
+    ratio = bsr_check(spmv, bc, blocks, x)
+    got = spmv.bsr_spmv(bc, blocks, x)
+    err = float((got - spmv.plain_bsr_spmv(bc, blocks, x)).abs().max())
+    n_bytes, n_flops = bsr_bytes_flops(r, kb, bs, ncb)
+    lib_ms, lib_note = bsr_library_ms(bc, blocks, x, got, r, kb, bs, ncb)
+    out = row("bsr_spmv", err, cuda_ms(lambda: spmv.bsr_spmv(bc, blocks, x), 5),
+              cuda_ms(lambda: spmv.plain_bsr_spmv(bc, blocks, x), 2), n_bytes,
+              lib_ms, n_flops)
+    log(f"kernel bsr_spmv at R={r} Kb={kb} BS={bs} Ncb={ncb}: max |err| "
+        f"{err} vs the plain einsum, {ratio:.4f} of the tolerance")
+    return {**out, "n_bytes": n_bytes, "lib_note": lib_note}
+
+
+def bsr_library_ms(bc, blocks, x, want, r, kb, bs, ncb):
+    """``torch.sparse_bsr_tensor(...) @ x`` where the installed torch runs
+    it on the card for float32: ``(ms or None, what was timed)``."""
+    import torch
+    if kb > 1 and not bool((bc[:, 1:] > bc[:, :-1]).all()):
+        return None, ("sparse BSR @ x: none (padded rows repeat block column "
+                      "0, which a BSR tensor may not)")
+    crow = torch.arange(0, r * kb + 1, kb, device=x.device, dtype=torch.int64)
+    col = bc.long().reshape(-1)
+
+    def bsr(values):                       # values [nnz blocks, BS, BS]
+        return torch.sparse_bsr_tensor(crow, col,
+                                       values.reshape(r * kb, bs, bs),
+                                       size=(r * bs, ncb * bs))
+    try:
+        a = bsr(blocks)
+        y = (a @ x[:, None])[:, 0]
+        scale = 2 * kb * bs * 2.0 ** -24 * (bsr(blocks.abs())
+                                            @ x.abs()[:, None])[:, 0]
+        if not bool(((y - want).abs() <= 2 * scale).all()):
+            # a yardstick that computes another function times nothing
+            return None, (f"sparse BSR @ x: none (off the kernel by "
+                          f"{float((y - want).abs().max())})")
+        return cuda_ms(lambda: a @ x[:, None], 5), "torch sparse BSR @ x"
+    except (RuntimeError, NotImplementedError) as exc:
+        first = str(exc).strip().splitlines()[0] if str(exc).strip() else ""
+        return None, f"sparse BSR @ x: none ({type(exc).__name__}: {first})"
+
+
+def row(name, err, ms, plain_ms, n_bytes, library_ms, n_flops=0):
+    by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_flops / F32_FLOP_PER_S
+          else "operations")
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(n_bytes, n_flops), "bound_by": by,
+            "library_ms": library_ms}
+
+
+def log_row(r, shape, n_bytes, library):
+    lib = (f"{library} {r['library_ms']:.4f} ms" if r["library_ms"]
+           is not None else library)
+    log(f"kernel {r['name']}: {shape}: {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms (no yardstick), bound {r['bound_ms']:.4f} ms "
+        f"(by {r['bound_by']}; {n_bytes} B / 3.35 TB/s), {lib}")
+
+
+def reduce_add_timed(routing, device, ids, rows):
+    """``reduce_received`` add at the routed histogram's flat shape (64
+    shards, e_local = 2^22, cap from factor 2.0, n_local = 64), with
+    ``scatter_reduce_`` sum beside it; all three exact (whole numbers)."""
+    import torch
+    from repro_torch.core.queues import QueueConfig
+    route, _, _ = kernel_modules()
+    s = 64
+    e_local = ids.numel() // s
+    n_local = -(-HIST_BINS // s)
+    cap = routing.resolve_flat_cap(QueueConfig.from_factor(2.0), "T3",
+                                   e_local, s)
+    dest = ids.view(s, e_local)
+    recv_slot, recv_val, n_drop = routing.owner_route(
+        torch.ones(s, e_local, device=device), dest // s, dest % s,
+        dest >= 0, s, cap)
+    if int(n_drop.sum()):
+        raise AssertionError("drops at the routed histogram shape")
+    m = recv_slot.numel()
+    got = route.reduce_received(recv_slot, recv_val, n_local, "add")
+    if not torch.equal(got, route.plain_reduce_received(
+            recv_slot, recv_val, n_local, "add")):
+        raise AssertionError("reduce_received add differs at the histogram "
+                             "shape")
+    flat_idx = torch.where(
+        recv_slot >= 0,
+        torch.arange(s, device=device)[:, None] * n_local + recv_slot.long(),
+        s * n_local + torch.arange(m, device=device).view(s, -1)).reshape(-1)
+    flat_val = recv_val.reshape(-1)
+    y0 = torch.zeros(s * n_local + m, device=device)
+
+    def library_call():
+        y0.zero_()
+        y0.scatter_reduce_(0, flat_idx, flat_val, "sum")
+
+    library_call()
+    if not torch.equal(y0[:s * n_local].view(s, n_local), got):
+        raise AssertionError("the scatter_reduce_ sum yardstick computes "
+                             "another function")
+    n_bytes = m * (4 + 4) + s * n_local * 4
+    r = rows["reduce_received"]
+    r["add_ms"] = cuda_ms(lambda: route.reduce_received(
+        recv_slot, recv_val, n_local, "add"), 5)
+    r["add_bound_ms"] = bound_ms(n_bytes)
+    r["add_library_ms"] = cuda_ms(library_call, 5)
+    log(f"kernel reduce_received add at the routed histogram shape: S={s} "
+        f"M={m // s} n_local={n_local}: {r['add_ms']:.4f} ms, bound "
+        f"{r['add_bound_ms']:.4f} ms ({n_bytes} B / 3.35 TB/s), "
+        f"scatter_reduce_ sum {r['add_library_ms']:.4f} ms; exact (whole "
+        f"numbers), equal to the plain version")
+
+
+# ---------------------------------------------------------------------------
+# phases 5-9: the add-reduce and stream apps
+# ---------------------------------------------------------------------------
+
+def rel_err(got, want):
+    import numpy as np
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want))
+                 / np.max(np.abs(want)))
+
+
+def held_to(tag, got, want, tol):
+    """Fail unless ``|got - want| <= tol`` at every entry; the worst ratio
+    of the error to its entry's bound."""
+    import numpy as np
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    bad = err > tol
+    if bad.any():
+        i = int(np.argmax(np.where(bad, err - tol, -np.inf)))
+        raise AssertionError(f"{tag}: {int(bad.sum())} entries off their "
+                             f"bound, e.g. #{i}: |err| {err[i]} > {tol[i]}")
+    return float(np.max(np.where(tol > 0, err / np.where(tol > 0, tol, 1),
+                                 0.0)))
+
+
+def spmv_bounds(g, x):
+    """Per row of ``y = A @ x``: ``(bound against the float64 oracle,
+    bound between two float32 runs)``. A term ``v = fl(A[r, c] fl(x[c]))``
+    is within ``gamma_2 |t|`` of ``t = A[r, c] x[c]``; any float32 sum of
+    the row's k terms is within ``gamma_{k-1} sum|v|`` of theirs. So a run
+    is within ``gamma_{k+1} sum|t|`` of the oracle and two runs of the same
+    terms within ``2 gamma_k sum|t|`` of each other; the factor 1 + 2^-20
+    covers the float64 oracle's own rounding."""
+    import numpy as np
+    k = np.diff(g.row_ptr).astype(np.float64)
+    mag = np.bincount(g.row_of(), weights=np.abs(
+        g.values.astype(np.float64) * x[g.col_idx]), minlength=g.n)
+    slack = 1 + 2.0 ** -20
+    return gamma(k + 1) * mag * slack, 2 * gamma(k) * mag * slack
+
+
+def pagerank_bound(g, device, damping=0.85, iters=20, n_dev=64):
+    """Per vertex, a bound on ``|rank - oracle|`` for the port's float32
+    PageRank on ``n_dev`` shards, carried through the rounds in float64 on
+    the card. One round of the port: ``c_u = fl(rank_u / deg_u)``; the
+    add-reduce of vertex v's k in-edge terms (within ``gamma_{k-1}`` of
+    their sum of magnitudes); the dangling mass, a sum over each shard's
+    ``n_local`` slots and then over the shards (within ``gamma_{n_local +
+    n_dev}``); then ``fl(a + fl(d32 fl(upd + fl(dangling inv_n))))`` with
+    ``a = fl(fl32(1 - d) inv_n)``, at most six roundings a term (within
+    ``gamma_6`` of its magnitude). Errors carried from the round before
+    reach v through the same sums."""
+    import numpy as np
+    import torch
+    f64 = torch.float64
+    n = g.n
+    src = torch.from_numpy(g.row_of()).to(device)
+    dst = torch.from_numpy(g.col_idx.astype(np.int64)).to(device)
+    deg = torch.bincount(src, minlength=n).to(f64)
+    k_in = torch.bincount(dst, minlength=n).to(f64)
+    dang = deg == 0
+    g_in = gamma(k_in + 1)       # the add-reduce and the division
+    g_dang = gamma(-(-n // n_dev) + n_dev)
+    g_upd = gamma(6)
+    r = torch.full((n,), 1.0 / n, dtype=f64, device=device)
+    e = r * U                    # the float32 start value
+    zero = torch.zeros(n, dtype=f64, device=device)
+    a = (1 - damping) / n
+    for _ in range(iters):
+        inv_deg = torch.where(dang, 0.0, 1.0 / deg.clamp(min=1))
+        s = zero.clone().index_add_(0, dst, (r * inv_deg)[src])
+        es = zero.clone().index_add_(0, dst, (e * inv_deg)[src])
+        d_mass, d_err = r[dang].sum(), e[dang].sum()
+        err_upd = es + g_in * (s + es)
+        err_dang = d_err + g_dang * (d_mass + d_err)
+        e = (damping * (err_upd + err_dang / n)
+             + g_upd * (a + damping * (s + err_upd + (d_mass + err_dang) / n)))
+        r = a + damping * (s + d_mass / n)
+    del src, dst
+    return e.cpu().numpy() * (1 + 2.0 ** -20)
+
+
+def run_pagerank(g, setup, device, totals):
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.sparse import ref
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import dcra_pagerank
+    t0 = time.perf_counter()
+    want = ref.pagerank_ref(g)
+    t_ref = time.perf_counter() - t0
+    fab = Fabric.fake(64, device=device)
+    opts = LaunchOptions(capacity_factor=4.0)
+    torch.cuda.reset_peak_memory_stats()
+    with MainPath("PageRank flat 64", ROUTE_KERNELS, totals) as path:
+        t0 = time.perf_counter()
+        rank, st = dcra_pagerank(g, fab, options=opts, setup=setup)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    err = rel_err(rank, want)
+    if st.total_drops or st.rounds != 20 or not err < 1e-4:
+        raise AssertionError(f"PageRank: rounds {st.rounds}, drops "
+                             f"{st.total_drops}, rel err {err}")
+    plain, pst = dcra_pagerank(g, fab, setup=setup,
+                               options=opts.with_(route_impl="sort"))
+    err_plain = rel_err(rank, plain)
+    if not (err_plain < 1e-4 and np.array_equal(pst.messages, st.messages)
+            and np.array_equal(pst.drops, st.drops)):
+        raise AssertionError(f"PageRank: kernel path off the plain-torch "
+                             f"path by {err_plain}")
+    t0 = time.perf_counter()
+    bound = pagerank_bound(g, device)
+    t_bound = time.perf_counter() - t0
+    w_oracle = held_to("PageRank vs the oracle", rank, want, bound)
+    w_plain = held_to("PageRank vs the plain-torch path", rank, plain,
+                      2 * bound)
+    per_round, device_ms, wall_ms, top = profile_kernels(
+        lambda: dcra_pagerank(g, fab, options=opts, setup=setup), st.rounds)
+    log(f"pagerank rmat-{SCALE} flat 64: rounds=20 messages/round="
+        f"{int(st.messages[0])} drops=0 run_s={run_s:.4f} "
+        f"edges*iters/s={g.nnz * 20 / run_s:.4e} peak_mem_gb={peak_gb:.2f} "
+        f"max|err|/max(rank): oracle {err:.3e}, plain-torch path "
+        f"{err_plain:.3e}; oracle {t_ref:.2f} s (numpy); launches "
+        f"{path.launches}")
+    log(f"pagerank flat 64: every vertex within its float32 error bound "
+        f"(median bound / rank {float(np.median(bound / want)):.3e}, "
+        f"computed in {t_bound:.2f} s); worst |err| / bound: oracle "
+        f"{w_oracle:.3e}, plain-torch path {w_plain:.3e}")
+    log_profile("pagerank flat 64", per_round, device_ms, wall_ms, top)
+
+
+def log_profile(tag, per_round, device_ms, wall_ms, top):
     if per_round is None:
-        log(f"bfs {layout}: per-round kernel times not measured (the "
-            f"profiler saw no device time)")
-    else:
-        log(f"bfs {layout}: per-round kernel ms "
-            + json.dumps({k: round(v, 4) for k, v in per_round.items()})
-            + f", all device kernels {device_ms:.2f} ms of the profiled "
-            f"run's {wall_ms:.2f} ms (device busy {device_ms / wall_ms:.3f})")
-        log(f"bfs {layout}: costliest device ops (ms in the run): "
-            + "; ".join(f"{name} {ms:.2f}" for name, ms in top))
-    return launches
+        log(f"{tag}: per-round kernel times not measured (the profiler saw "
+            f"no device time)")
+        return
+    log(f"{tag}: per-round kernel ms "
+        + json.dumps({k: round(v, 4) for k, v in per_round.items() if v})
+        + f", all device kernels {device_ms:.2f} ms of the profiled "
+        f"run's {wall_ms:.2f} ms (device busy {device_ms / wall_ms:.3f})")
+    log(f"{tag}: costliest device ops (ms in the run): "
+        + "; ".join(f"{name} {ms:.2f}" for name, ms in top))
+
+
+def run_spmv(g, device, totals):
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.sparse import ref
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import dcra_spmv, spmv_task_stream
+    x = np.random.default_rng(SEED).random(g.n)
+    want = ref.spmv_ref(g, x)
+    tol_oracle, tol_runs = spmv_bounds(g, x)
+    t0 = time.perf_counter()
+    spmv_task_stream(g, x, 64)
+    stream_s = time.perf_counter() - t0
+    for layout, fab, opts in [
+            ("flat 64", Fabric.fake(64, device=device),
+             LaunchOptions(capacity_factor=2.0)),
+            ("pod 8x8", Fabric.virtual((8, 8), ("pod", "data"),
+                                       device=device),
+             LaunchOptions(pod_axis="pod", capacity_factor=2.0))]:
+        torch.cuda.reset_peak_memory_stats()
+        with MainPath(f"SpMV {layout}", ROUTE_KERNELS, totals) as path:
+            t0 = time.perf_counter()
+            y, drops = dcra_spmv(g, x, fab, options=opts)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        err = rel_err(y, want)
+        if drops or not err < 1e-4:
+            raise AssertionError(f"SpMV {layout}: drops {drops}, rel err "
+                                 f"{err}")
+        w_oracle = held_to(f"SpMV {layout} vs the oracle", y, want,
+                           tol_oracle)
+        plain, pdrops = dcra_spmv(g, x, fab,
+                                  options=opts.with_(route_impl="sort"))
+        err_plain = rel_err(y, plain.astype(np.float64))
+        if pdrops or not err_plain < 1e-4:
+            raise AssertionError(f"SpMV {layout}: kernel path off the "
+                                 f"plain-torch path by {err_plain}")
+        w_plain = held_to(f"SpMV {layout} vs the plain-torch path", y, plain,
+                          tol_runs)
+        log(f"spmv rmat-{SCALE} {layout}: drops=0 stream build {stream_s:.2f} s "
+            f"(numpy) run_s={run_s:.4f} (stream build included) "
+            f"nnz/s={g.nnz / run_s:.4e} peak_mem_gb={peak_gb:.2f} "
+            f"max|err|/max|y|: oracle {err:.3e}, plain-torch path "
+            f"{err_plain:.3e}; every row within its float32 bound, worst "
+            f"|err| / bound: oracle {w_oracle:.3e}, plain-torch path "
+            f"{w_plain:.3e}; launches {path.launches}")
+
+
+def run_histogram(els, device, totals):
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.sparse import ref
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import dcra_histogram
+    want = ref.histogram_ref(els, HIST_BINS)
+    for layout, fab, opts, need in [
+            ("1 shard", Fabric.fake(1, device=device), None, ("histogram",)),
+            ("flat 64", Fabric.fake(64, device=device), None, ROUTE_KERNELS),
+            # stage 2 of the pod path holds n_intra * cap1 * factor slots a
+            # shard: factor 1.25 keeps it at 0.4e9 slots (2.0: 1.1e9)
+            ("pod 8x8", Fabric.virtual((8, 8), ("pod", "data"),
+                                       device=device),
+             LaunchOptions(pod_axis="pod", capacity_factor=1.25),
+             ROUTE_KERNELS)]:
+        torch.cuda.reset_peak_memory_stats()
+        with MainPath(f"histogram {layout}", need, totals) as path:
+            t0 = time.perf_counter()
+            counts, drops = dcra_histogram(els, HIST_BINS, fab, options=opts)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if drops or not np.array_equal(counts, want):
+            raise AssertionError(f"histogram {layout}: drops {drops}, "
+                                 f"differs from the oracle")
+        log(f"histogram {len(els)} / {HIST_BINS} bins {layout}: equal to the "
+            f"oracle, drops=0 run_s={run_s:.4f} elements/s="
+            f"{len(els) / run_s:.4e} peak_mem_gb={peak_gb:.2f} launches "
+            f"{path.launches}")
 
 
 def small_apps(device):
@@ -337,10 +865,11 @@ def small_apps(device):
     from repro_torch.core.fabric import Fabric
     from repro_torch.sparse import datasets, ref
     from repro_torch.sparse.options import LaunchOptions
-    from repro_torch.sparse.torch_apps import dcra_sssp, dcra_wcc
-    g = datasets.rmat(18, seed=SEED)
+    from repro_torch.sparse.torch_apps import dcra_kcore, dcra_sssp, dcra_wcc
+    g = datasets.rmat(SMALL_SCALE, seed=SEED)
     root = int(np.argmax(g.degrees()))
     want_d, want_l = ref.sssp_ref(g, root), ref.wcc_ref(g)
+    want_k = ref.kcore_ref(g, 12)
     for layout, fab, opts in [
             ("flat 8", Fabric.fake(8, device=device), LaunchOptions()),
             ("pod 2x4", Fabric.virtual((2, 4), ("pod", "data"),
@@ -348,13 +877,64 @@ def small_apps(device):
              LaunchOptions(pod_axis="pod", capacity_factor=2.0))]:
         d, st = dcra_sssp(g, root, fab, options=opts)
         lab, st2 = dcra_wcc(g, fab, options=opts)
+        core, st3 = dcra_kcore(g, 12, fab, options=opts)
         if not np.array_equal(d, want_d) or st.total_drops:
             raise AssertionError(f"SSSP {layout} differs from the oracle")
         if not np.array_equal(lab, want_l) or st2.total_drops:
             raise AssertionError(f"WCC {layout} differs from the oracle")
-        log(f"sssp/wcc rmat-18 {layout}: nnz={g.nnz} sssp rounds={st.rounds} "
-            f"wcc rounds={st2.rounds} components={len(np.unique(lab))}: "
-            f"equal to the oracles, 0 drops")
+        if not np.array_equal(core, want_k) or st3.total_drops:
+            raise AssertionError(f"k-core {layout} differs from the oracle")
+        log(f"sssp/wcc/kcore rmat-{SMALL_SCALE} {layout}: nnz={g.nnz} sssp rounds="
+            f"{st.rounds} wcc rounds={st2.rounds} components="
+            f"{len(np.unique(lab))} kcore(k=12) rounds={st3.rounds} "
+            f"survivors={int((core >= 0).sum())}: equal to the oracles, "
+            f"0 drops")
+
+
+def run_spmv_csr(device, totals, rows):
+    """``spmv_csr`` on Erdos-Renyi 2^14 (bs 128) against the oracle within
+    the BSR tolerance; then the kernel on the same BSR arrays on the card
+    against the plain einsum, timed there for the kernel table."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import datasets, ref
+    _, _, spmv = kernel_modules()
+    g = datasets.erdos_renyi(ER_VERTICES, seed=SEED)
+    x = np.random.default_rng(SEED).random(g.n)
+    with MainPath("spmv_csr", ("bsr_spmv",), totals) as path:
+        t0 = time.perf_counter()
+        y = ops.spmv_csr(g, x, bs=128, device=device).cpu().numpy()
+        run_s = time.perf_counter() - t0
+    bc, blocks = ops.csr_to_bsr(g, 128)
+    kb = bc.shape[1]
+    scale = np.bincount(g.row_of(), weights=np.abs(
+        g.values.astype(np.float64) * x[g.col_idx]), minlength=g.n)
+    tol = 2 * kb * 128 * 2.0 ** -24 * scale
+    err = np.abs(y - ref.spmv_ref(g, x))
+    if not np.all(err <= tol):
+        raise AssertionError("spmv_csr off the oracle beyond the BSR "
+                             "tolerance")
+    log(f"spmv_csr erdos-renyi {g.n} (nnz {g.nnz}, bs 128, Kb {kb}): within "
+        f"the BSR tolerance of the oracle (worst |err| / tol "
+        f"{float(np.max(err / np.maximum(tol, 1e-300))):.4f}), run_s "
+        f"{run_s:.4f} (host BSR build included); launches {path.launches}")
+    # the arrays spmv_csr hands the kernel, made again on the card
+    xp = np.zeros(bc.shape[0] * 128, np.float32)
+    xp[:g.n] = x.astype(np.float32)
+    r = bsr_row(spmv, torch.from_numpy(bc).to(device),
+                torch.from_numpy(blocks).to(device),
+                torch.from_numpy(xp).to(device))
+    rows["bsr_spmv"] = {k: v for k, v in r.items()
+                        if k not in ("n_bytes", "lib_note")}
+    log_row(rows["bsr_spmv"], f"R={bc.shape[0]} Kb={kb} BS=128 "
+            f"Ncb={bc.shape[0]} (spmv_csr's shape)", r["n_bytes"],
+            r["lib_note"])
+
+
+def phase(name, t0):
+    log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+    return time.perf_counter()
 
 
 def main() -> int:
@@ -375,63 +955,96 @@ def main() -> int:
     from repro_torch.core import routing
     from repro_torch.core.fabric import Fabric
     from repro_torch.kernels import _build
-    from repro_torch.kernels import route
     from repro_torch.sparse import datasets, ref
     from repro_torch.sparse.options import LaunchOptions
     from repro_torch.sparse.program import _graph_setup
+    route = kernel_modules()[0]
+    t_start = t0 = time.perf_counter()
 
     # ---- 1: card + build ---------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    device = torch.device("cuda", 0)
+    device = torch.device(*CARD)
     name = torch.cuda.get_device_name(0)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"numpy {np.__version__}")
-    rec = _build.build_record()
-    log(f"build: {Path(rec['path']).name} in {rec['seconds']:.2f} s "
-        f"(nvcc sm_90a)")
+    recs = _build.build()
+    log("build (nvcc sm_90a, one process a source, all at once): "
+        + ", ".join(f"{Path(r['path']).name} {r['seconds']:.2f} s"
+                    for r in recs.values()))
+    t0 = phase("1 (card, build)", t0)
 
     # ---- 2: host setup -----------------------------------------------------
-    t0 = time.perf_counter()
-    g = datasets.rmat(22, seed=SEED)
+    g = datasets.rmat(SCALE, seed=SEED)
     t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     setup = _graph_setup(g, 64)
-    t_pack = time.perf_counter() - t0
+    t_pack = time.perf_counter() - t1
     root = int(np.argmax(g.degrees()))
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     want = ref.bfs_ref(g, root)
-    t_ref = time.perf_counter() - t0
-    log(f"setup rmat-22: n={g.n} nnz={g.nnz} E_max={setup[-1]} "
+    t_ref = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    els = datasets.histogram_data(HIST_N, HIST_BINS, seed=SEED)
+    t_hist = time.perf_counter() - t1
+    log(f"setup rmat-{SCALE}: n={g.n} nnz={g.nnz} E_max={setup[-1]} "
         f"generate+CSR {t_gen:.2f} s, pack onto 64 shards {t_pack:.2f} s, "
-        f"oracle BFS {t_ref:.2f} s (numpy)")
+        f"oracle BFS {t_ref:.2f} s; histogram_data({HIST_N}, {HIST_BINS}) "
+        f"{t_hist:.2f} s (numpy)")
+    t0 = phase("2 (host setup)", t0)
 
     # ---- 3: kernels vs plain ----------------------------------------------
     kernel_edge_cases(route, device)
     rows = main_shape_kernels(route, routing, setup, device)
+    leaf_edge_cases(device)
+    ids = torch.from_numpy(els.astype(np.int32)).to(device)
+    rows.update(leaf_timed(device, ids))
+    reduce_add_timed(routing, device, ids, rows)
+    del ids
+    torch.cuda.empty_cache()
+    t0 = phase("3 (kernels vs plain)", t0)
 
     # ---- 4: BFS on RMAT-22 -------------------------------------------------
-    launches = {k: 0 for k in route.LAUNCHES}
+    totals = {k: 0 for k in SOURCES}
     for layout, fab, opts in [
             ("flat 64", Fabric.fake(64, device=device),
              LaunchOptions(capacity_factor=4.0)),
             ("pod 8x8", Fabric.virtual((8, 8), ("pod", "data"),
                                        device=device),
              LaunchOptions(pod_axis="pod", capacity_factor=2.0))]:
-        got = run_bfs(g, root, want, setup, layout, fab, opts, route)
-        for k, v in got.items():
-            launches[k] += v
-    for k in rows:
-        rows[k]["launches"] = launches[k]
+        run_bfs(g, root, want, setup, layout, fab, opts, totals)
+    t0 = phase("4 (BFS rmat-22)", t0)
 
-    # ---- 5: SSSP and WCC on RMAT-18 ---------------------------------------
+    # ---- 5-7: PageRank, SpMV, histogram ------------------------------------
+    run_pagerank(g, setup, device, totals)
+    t0 = phase("5 (PageRank rmat-22)", t0)
+    del setup
+    run_spmv(g, device, totals)
+    t0 = phase("6 (SpMV rmat-22)", t0)
+    del g
+    run_histogram(els, device, totals)
+    del els
+    t0 = phase("7 (histogram 2^28)", t0)
+
+    # ---- 8-9: SSSP, WCC, k-core on RMAT-18; spmv_csr -----------------------
     small_apps(device)
+    t0 = phase("8 (SSSP/WCC/k-core rmat-18)", t0)
+    run_spmv_csr(device, totals, rows)
+    t0 = phase("9 (spmv_csr)", t0)
 
+    rows = {k: rows[k] for k in SOURCES}           # the table's order
+    for k in rows:
+        rows[k]["launches"] = totals[k]
+    if not all(totals.values()):
+        raise AssertionError(f"a kernel was never launched on a main path: "
+                             f"{totals}")
+    log(f"whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
+    # the port drives one card (its shards are virtual)
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -1,11 +1,11 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library
-with a plain C interface, bound with ``ctypes``.
+"""Build and load the port's CUDA kernels: one ``nvcc`` per source into a
+shared library with a plain C interface, bound with ``ctypes``.
 
-Nothing here runs at import. :func:`library` compiles
-``csrc/route.cu`` for ``sm_90a`` at first use into ``build/kernels/``
-at the root of the checkout (listed in ``.gitignore``), named by the
-hash of the source so an edited kernel is rebuilt, and loads it once
-per process.
+Nothing here runs at import. :func:`library` builds every
+``csrc/*.cu`` for ``sm_90a`` at first use, all ``nvcc`` processes
+started together, into ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``), each named by the hash of its source so an
+edited kernel is rebuilt, and loads each library once per process.
 """
 from __future__ import annotations
 
@@ -23,15 +23,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+#: C entry points of each source (``csrc/<name>.cu``) and their arguments
 _SIGNATURES = {
-    "dcra_rank_tile": (),
-    "dcra_bucket_rank": (_P, _P, _I64, _I64, _I32, _P, _P, _P),
-    "dcra_bucket_scatter": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
-                            _I32, _I64, _P, _P, _P, _P, _P),
-    "dcra_reduce_received": (_P, _P, _I64, _I64, _I64, _I32, _P, _P),
+    "route": {
+        "dcra_rank_tile": (),
+        "dcra_bucket_rank": (_P, _P, _I64, _I64, _I32, _P, _P, _P),
+        "dcra_bucket_scatter": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                                _I32, _I64, _P, _P, _P, _P, _P),
+        "dcra_reduce_received": (_P, _P, _I64, _I64, _I64, _I32, _P, _P),
+    },
+    "histogram": {
+        "dcra_histogram": (_P, _I64, _I32, _P, _P),
+    },
+    "spmv": {
+        "dcra_bsr_spmv": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P),
+    },
 }
 
-_LIB = {}                 # loaded library + build record, filled on first use
+_LIBS = {}                # name -> loaded library, filled on first use
+_BUILD = {}               # name -> {"path", "seconds"}, filled by build()
 
 
 def _nvcc() -> str:
@@ -45,41 +55,61 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def build() -> dict:
-    """Compile ``csrc/route.cu`` unless a library of the same source hash
-    exists. Returns ``{"path", "seconds"}`` (``seconds`` 0.0 when the
-    library was already built)."""
-    src = CSRC / "route.cu"
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    if out.exists():
-        return {"path": out, "seconds": 0.0}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": out, "seconds": time.perf_counter() - t0}
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def library() -> ctypes.CDLL:
-    """The loaded route kernel library (built on first call)."""
-    if "lib" not in _LIB:
-        rec = build()
-        lib = ctypes.CDLL(str(rec["path"]))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
+def build() -> dict:
+    """Compile every source in :data:`_SIGNATURES` whose library of the
+    same source hash is missing, one ``nvcc`` each, all at once. Returns
+    ``{name: {"path", "seconds"}}`` (``seconds`` 0.0 for a library that
+    was already built; otherwise the wall time of the parallel build)."""
+    if len(_BUILD) == len(_SIGNATURES):
+        return dict(_BUILD)
+    todo = {}
+    for name in _SIGNATURES:
+        out = _target(name)
+        if out.exists():
+            _BUILD[name] = {"path": out, "seconds": 0.0}
+        else:
+            todo[name] = out
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        nvcc, procs = _nvcc(), {}
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            log = tmp.with_suffix(".log")
+            with open(log, "w") as err:     # a file: no pipe fills up
+                procs[name] = (tmp, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")],
+                    stdout=subprocess.DEVNULL, stderr=err))
+        errors = []
+        for name, (tmp, log, proc) in procs.items():
+            if proc.wait() != 0:
+                errors.append(f"nvcc failed on {name}.cu:\n{log.read_text()}")
+            log.unlink()
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        seconds = time.perf_counter() - t0
+        for name, (tmp, _, _) in procs.items():
+            os.replace(tmp, todo[name])
+            _BUILD[name] = {"path": todo[name], "seconds": seconds}
+    return dict(_BUILD)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library of ``csrc/<name>.cu`` (every library is
+    built on the first call)."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build()[name]["path"]))
+        for fn_name, args in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
-        _LIB["lib"], _LIB["build"] = lib, rec
-    return _LIB["lib"]
+        _LIBS[name] = lib
+    return _LIBS[name]
 
-
-def build_record() -> dict:
-    """How the loaded library was obtained (path, build seconds); builds
-    it if that has not happened yet."""
-    library()
-    return dict(_LIB["build"])

@@ -54,11 +54,14 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
-        raise ValueError(f"route kernels run on cuda or cpu, not {t.device}")
+        raise ValueError(f"the kernels run on cuda or cpu, not {t.device}")
     return True
 
 
-def _check(t, name, dtype, shape):
+def _check(t, name, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -209,7 +212,7 @@ def plain_reduce_received(recv_slot, recv_val, n_local, op):
 
 def _launch_rank(dest, valid_u8, n_buckets):
     from ._build import library
-    lib = library()
+    lib = library("route")
     s, n = dest.shape
     tiles = -(-n // lib.dcra_rank_tile())
     scratch = torch.empty(s * n_buckets * max(tiles, 1), dtype=torch.int32,
@@ -226,8 +229,8 @@ def _launch_rank(dest, valid_u8, n_buckets):
 
 
 def _check_tasks(dest, valid, n_buckets):
-    _check(dest, "dest", torch.int32, dest.shape)
-    _check(valid, "valid", torch.bool, dest.shape)
+    _check(dest, "dest", torch.int32, dest.shape, dest.device)
+    _check(valid, "valid", torch.bool, dest.shape, dest.device)
     if dest.dim() != 2:
         raise ValueError(f"dest must be [S, N], got {tuple(dest.shape)}")
     if not 1 <= n_buckets <= MAX_BUCKETS:
@@ -253,16 +256,19 @@ def bucket_scatter(x, dest, valid, aux_ints, n_buckets, cap):
     if not _on_cuda(x):
         return plain_bucket_scatter(x, dest, valid, aux_ints, n_buckets, cap)
     _check_tasks(dest, valid, n_buckets)
+    if dest.device != x.device:
+        raise ValueError(f"dest: expected a tensor on {x.device}, got "
+                         f"{dest.device}")
     s, n = dest.shape
     if x.dim() != 3:
         raise ValueError(f"x must be [S, N, D], got {tuple(x.shape)}")
-    _check(x, "x", torch.float32, (s, n, x.shape[2]))
+    _check(x, "x", torch.float32, (s, n, x.shape[2]), x.device)
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
     for j, a in enumerate(aux_ints):
-        _check(a, f"aux_ints[{j}]", torch.int32, (s, n))
+        _check(a, f"aux_ints[{j}]", torch.int32, (s, n), x.device)
     from ._build import library
-    lib = library()
+    lib = library("route")
     k, d = len(aux_ints), x.shape[2]
     total = n_buckets * cap
     dev = x.device
@@ -295,12 +301,14 @@ def reduce_received(recv_slot, recv_val, n_local, op):
     if recv_slot.dim() != 2:
         raise ValueError(f"recv_slot must be [S, M], got "
                          f"{tuple(recv_slot.shape)}")
-    _check(recv_slot, "recv_slot", torch.int32, recv_slot.shape)
-    _check(recv_val, "recv_val", torch.float32, recv_slot.shape)
+    _check(recv_slot, "recv_slot", torch.int32, recv_slot.shape,
+           recv_slot.device)
+    _check(recv_val, "recv_val", torch.float32, recv_slot.shape,
+           recv_slot.device)
     from ._build import library
     s, m = recv_slot.shape
     y = torch.empty(s, n_local, dtype=torch.float32, device=recv_slot.device)
-    _raise_on(library().dcra_reduce_received(
+    _raise_on(library("route").dcra_reduce_received(
         recv_slot.data_ptr(), recv_val.data_ptr(), s, m, n_local,
         REDUCE_OPS.index(op), y.data_ptr(), _stream(recv_slot.device)),
         "reduce_received")

@@ -134,3 +134,12 @@ def wiki_like(n_vertices: int = 4096, avg_degree: int = 25,
     w = rng.integers(1, 256, len(src)).astype(np.float32)
     return from_edges(n_vertices, src.astype(np.int64), dst.astype(np.int64),
                       w)
+
+
+def histogram_data(n: int = 1 << 16, n_bins: int = 1 << 12,
+                   seed: int = 3) -> np.ndarray:
+    """Element stream of the histogram app: normal around the middle bin
+    (sigma ``n_bins / 6``), clipped to ``[0, n_bins)``, int64."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(n_bins / 2, n_bins / 6, n)
+    return np.clip(vals, 0, n_bins - 1).astype(np.int64)

@@ -1,4 +1,4 @@
-"""Numpy oracles for BFS, SSSP and WCC (counterpart of
+"""Numpy oracles for the seven apps (counterpart of
 ``repro/sparse/ref.py``), vectorised so that they run at RMAT-22.
 
 Independent of the runtime: no owner layout, no routing, no torch.
@@ -80,3 +80,45 @@ def wcc_ref(g: CSR) -> np.ndarray:
         if np.array_equal(upd, label):
             return label
         label = upd
+
+
+def pagerank_ref(g: CSR, damping: float = 0.85, iters: int = 20
+                 ) -> np.ndarray:
+    """Power iteration in float64; dangling mass redistributed uniformly."""
+    deg = g.degrees().astype(np.float64)
+    rank = np.full(g.n, 1.0 / g.n)
+    rows = g.row_of()
+    for _ in range(iters):
+        contrib = np.where(deg > 0, rank / np.maximum(deg, 1), 0.0)
+        acc = np.bincount(g.col_idx, weights=contrib[rows], minlength=g.n)
+        dangling = rank[deg == 0].sum()
+        rank = (1 - damping) / g.n + damping * (acc + dangling / g.n)
+    return rank
+
+
+def spmv_ref(g: CSR, x: np.ndarray) -> np.ndarray:
+    """y = A @ x in float64."""
+    rows = g.row_of()
+    return np.bincount(rows, weights=g.values * x[g.col_idx],
+                       minlength=g.n).astype(np.float64)
+
+
+def histogram_ref(elements: np.ndarray, n_bins: int) -> np.ndarray:
+    return np.bincount(elements, minlength=n_bins).astype(np.int64)
+
+
+def kcore_ref(g: CSR, k: int) -> np.ndarray:
+    """k-core by iterative peel on the undirected view (degree counts each
+    stored edge direction): each survivor's within-core degree, -1 if
+    peeled."""
+    src = np.concatenate([g.row_of(), g.col_idx.astype(np.int64)])
+    dst = np.concatenate([g.col_idx.astype(np.int64), g.row_of()])
+    deg = np.bincount(src, minlength=g.n).astype(np.int64)
+    alive = np.ones(g.n, bool)
+    frontier = alive & (deg < k)
+    while frontier.any():
+        dec = np.bincount(dst[frontier[src]], minlength=g.n)
+        alive &= ~frontier
+        deg = deg - dec
+        frontier = alive & (deg < k)
+    return np.where(alive, deg, -1).astype(np.int64)

@@ -275,9 +275,10 @@ def test_unported_paths_raise():
         dcra_bfs(g, 0, fab, options=LaunchOptions(config="auto"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dcra_bfs(g, 0, fab, options=LaunchOptions(round_mode="pipelined"))
-    stream = tprogram.TaskProgram(name="spmv", mode="single")
+    from repro_torch.sparse.torch_apps import SPMV
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprogram.run_program(stream, g, fab)
+        tprogram.run_program(SPMV, (g, np.ones(g.n)), fab,
+                             options=LaunchOptions(config="auto"))
     with pytest.raises(ValueError, match="2\\^24"):
         dcra_wcc(types.SimpleNamespace(n=(1 << 24) + 1), fab)
     with pytest.raises(TypeError):

@@ -240,7 +240,7 @@ def test_pack_edges_empty():
 @pytest.mark.parametrize("n,n_dev", [(17, 4), (32, 8), (5, 8), (64, 1)])
 def test_owner_layout_matches_reference(n, n_dev):
     arr = np.random.default_rng(n).random(n).astype(np.float32)
-    packed, valid = tprogram._owner_pack_np(arr, n_dev, 0.0)
+    packed, valid = tprogram.owner_layout(arr, n_dev)
     jpacked, jvalid = jprogram.owner_layout(arr, n_dev)
     assert np.array_equal(packed, np.asarray(jpacked))
     assert np.array_equal(valid, np.asarray(jvalid))
@@ -249,7 +249,7 @@ def test_owner_layout_matches_reference(n, n_dev):
     assert np.array_equal(back, np.asarray(jprogram.from_owner_layout(
         jpacked, n, n_dev)))
     for fill in (0.0, np.inf):
-        got = tprogram._owner_pack_np(arr, n_dev, fill)
+        got = tprogram.owner_layout(arr, n_dev, fill)
         want = jprogram._owner_pack_np(arr, n_dev, fill)
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1],
                                                                   want[1])

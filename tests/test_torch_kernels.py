@@ -1,4 +1,5 @@
-"""The port's CUDA routing kernels against their plain PyTorch versions.
+"""The port's CUDA kernels (routing, histogram, BSR SpMV) against their
+plain PyTorch versions.
 
 This file imports torch, numpy and the port only (no jax), so that it
 runs on a machine with a card:
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import histogram as thist
 from repro_torch.kernels import route as troute
+from repro_torch.kernels import spmv as tspmv
 
 # (S, N, buckets, cap, aux columns, payload width, share of valid tasks):
 # N = 0 and 1, N off the rank tile, S in {1, 7, 64}, caps that drop,
@@ -128,3 +131,89 @@ def test_cuda_wrappers_check_their_inputs(cuda_device):
         troute.bucket_scatter(x, dest, valid, aux, 4, 0)
     with pytest.raises(TypeError):
         troute.reduce_received(dest, x[..., 0].double(), 8, "min")
+    # an input left on the host is refused before any launch
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        troute.bucket_rank(dest, valid.cpu(), 4)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        troute.bucket_scatter(x, dest, valid, [aux[0].cpu()], 4, 2)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        troute.bucket_scatter(x, dest.cpu(), valid.cpu(), aux, 4, 2)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        troute.reduce_received(dest, x[..., 0].cpu(), 8, "min")
+
+
+# (N, bins): empty, one, off the 16-byte vector, the shared-memory bins
+# and the global-memory branch (2^20 bins)
+HIST_CASES = [(0, 5), (1, 1), (997, 61), ((1 << 20) + 3, 4096),
+              (5003, 1 << 20), (1 << 16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bins", HIST_CASES)
+def test_cuda_histogram_matches_plain(cuda_device, n, bins):
+    """Bit-identical (integer atomics are exact in any order), with ids
+    below 0 and from ``bins`` on present, at every alignment of the
+    first element."""
+    rng = np.random.default_rng(n + bins)
+    ids = torch.from_numpy(rng.integers(-3, bins + 3, n + 3).astype(
+        np.int32)).to(cuda_device)
+    thist.reset_launches()
+    for off in range(4):
+        e = ids[off:off + n]
+        assert torch.equal(thist.histogram(e, bins),
+                           thist.plain_histogram(e, bins)), off
+    torch.cuda.synchronize()
+    assert thist.LAUNCHES["histogram"] == (4 if n else 0)
+
+
+# (R, Kb, BS, Ncb): tests/test_kernels.py's shapes, BS off the warp width
+BSR_CASES = [(4, 3, 32, 6), (8, 2, 64, 8), (2, 5, 128, 4), (5, 3, 48, 7),
+             (3, 2, 16, 2), (1, 1, 128, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,kb,bs,ncb", BSR_CASES)
+def test_cuda_bsr_spmv_matches_plain(cuda_device, r, kb, bs, ncb):
+    """Two float32 sums of the same Kb*BS products in other orders:
+    within 2*Kb*BS*2^-24 of each row's sum of |a * x| (the plain einsum
+    in full float32, TF32 off)."""
+    rng = np.random.default_rng(r * bs + kb)
+    bc = torch.from_numpy(rng.integers(0, ncb, (r, kb)).astype(
+        np.int32)).to(cuda_device)
+    blocks = torch.from_numpy((rng.random((r, kb, bs, bs)) - 0.5).astype(
+        np.float32)).to(cuda_device)
+    x = torch.from_numpy((rng.random(ncb * bs) - 0.5).astype(
+        np.float32)).to(cuda_device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = tspmv.plain_bsr_spmv(bc, blocks, x)
+        scale = tspmv.plain_bsr_spmv(bc, blocks.abs(), x.abs())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tspmv.reset_launches()
+    got = tspmv.bsr_spmv(bc, blocks, x)
+    torch.cuda.synchronize()
+    assert tspmv.LAUNCHES["bsr_spmv"] == 1
+    assert bool(((got - want).abs() <= 2 * kb * bs * 2.0 ** -24 * scale)
+                .all())
+
+
+@pytest.mark.cuda
+def test_cuda_leaf_wrappers_check_their_inputs(cuda_device):
+    ids = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        thist.histogram(ids, 4)
+    with pytest.raises(ValueError):
+        thist.histogram(ids.int().view(2, 4), 4)
+    bc = torch.zeros(2, 3, dtype=torch.int32, device=cuda_device)
+    blocks = torch.zeros(2, 3, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError):
+        tspmv.bsr_spmv(bc, blocks, torch.zeros(12, device=cuda_device))
+    with pytest.raises(TypeError):
+        tspmv.bsr_spmv(bc.long(), blocks, torch.zeros(16, device=cuda_device))
+    # block columns or x left on the host are refused before any launch
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tspmv.bsr_spmv(bc.cpu(), blocks, torch.zeros(16, device=cuda_device))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tspmv.bsr_spmv(bc, blocks, torch.zeros(16))
