@@ -33,10 +33,28 @@ script exits non-zero with no result line:
 9. ``spmv_csr`` end to end (the BSR kernel) on an Erdos-Renyi graph of
    2^14 vertices, against the oracle within the BSR tolerance; then the
    BSR kernel on the same arrays against its plain version, timed for
-   the kernel table.
+   the kernel table;
+10. the MoE layer of OLMoE-1B-7B at full width (d_model 2048, 64 experts
+   top-8, d_expert 1024; float32 weights from ``torch.Generator`` seed
+   1) through ``moe_dcra`` on three virtual packagings: (data 2, expert
+   8, tp 1) fused, (data 2, expert 4, tp 2) with a tp-sharded FFN, and
+   (pod 2, data 1, expert 4, tp 2) two-stage. At the config's capacity
+   factor 1.25 on x [8, 2048, 2048]: drops per bucket, layer ms,
+   tokens/s, peak GB, route-kernel launches, one profiled run. With no
+   drop (dispatch queue at factor 8) on x [2, 2048, 2048]: held to the
+   port's ``moe_einsum`` (factor 8, capacity the whole group) within
+   1e-4 of max|out|;
+11. the grouped-matmul and flash-attention kernels against their plain
+   versions at edge cases, then ``ops.gmm`` at phase 10's expert buckets
+   (the fused packaging's ``xe`` of all shards, w = wg, the real expert
+   of every row tile) and ``ops.flash_attention`` at OLMoE's attention
+   widths (B 2, H 16, S 4096, hd 128, causal, bf16 and float32), each
+   timed beside its bound, its plain version and one PyTorch call
+   (``torch.bmm``, ``scaled_dot_product_attention``).
 
-Each path of phases 4-7 and 9 runs with every kernel's launch count set
-to 0 just before it and read just after; the kernel table sums them.
+Each path of phases 4-7, 9, 10 and 11 runs with every kernel's launch
+count set to 0 just before it and read just after; the kernel table
+sums them.
 The line before the last is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the
 repository around it: without either it exits with code 2.
@@ -52,17 +70,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 U = 2.0 ** -24                     # unit roundoff of float32
 SEED = 1
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"bucket_rank": CSRC + "route.cu", "bucket_scatter": CSRC + "route.cu",
            "reduce_received": CSRC + "route.cu",
-           "histogram": CSRC + "histogram.cu", "bsr_spmv": CSRC + "spmv.cu"}
+           "histogram": CSRC + "histogram.cu", "bsr_spmv": CSRC + "spmv.cu",
+           "gmm": CSRC + "gmm.cu",
+           "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"bucket_rank": "src/repro/kernels/route.py:120",
             "bucket_scatter": "src/repro/kernels/route.py:282",
             "reduce_received": "src/repro/kernels/route.py:359",
             "histogram": "src/repro/kernels/histogram.py:38",
-            "bsr_spmv": "src/repro/kernels/spmv.py:39"}
+            "bsr_spmv": "src/repro/kernels/spmv.py:39",
+            "gmm": "src/repro/kernels/moe_gmm.py:29",
+            "flash_attention": "src/repro/kernels/flash_attention.py:66"}
 # substrings of each wrapper's CUDA kernels, for the profiler's table
 KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
                                 "rank_kernel"),
@@ -70,12 +93,25 @@ KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
                 "reduce_received": ("reduce_init_kernel", "reduce_kernel",
                                     "reduce_finish_kernel"),
                 "histogram": ("hist_kernel",),
-                "bsr_spmv": ("bsr_spmv_kernel",)}
+                "bsr_spmv": ("bsr_spmv_kernel",),
+                "gmm": ("gmm_kernel",),
+                "flash_attention": ("flash_kernel",)}
 CARD = ("cuda", 0)
 SCALE, SMALL_SCALE = 22, 18        # RMAT scales of the main and small graphs
 HIST_N, HIST_BINS = 1 << 28, 4096
 BSR_TIMED = (2048, 32, 128, 2048)  # R, Kb, BS, Ncb
 ER_VERTICES = 1 << 14              # spmv_csr's graph
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TOKENS = (8, 2048)             # x [B, S, d_model] at the config's factor
+MOE_CHECK_TOKENS = (2, 2048)       # the no-drop comparison with the einsum
+MOE_PACKAGINGS = [  # (label, fabric shape, axis names, MeshInfo options)
+    ("fused (data 2, expert 8, tp 1)", (2, 8, 1), ("data", "expert", "tp"),
+     {}),
+    ("tp-sharded FFN (data 2, expert 4, tp 2)", (2, 4, 2),
+     ("data", "expert", "tp"), {"fuse_tp": False}),
+    ("two-stage (pod 2, data 1, expert 4, tp 2)", (2, 1, 4, 2),
+     ("pod", "data", "expert", "tp"), {"pod_axis": "pod"})]
+FLASH_SHAPE = (2, 16, 4096, 128)   # B, H, S, hd: OLMoE's attention widths
 
 
 def log(*parts):
@@ -98,23 +134,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_flops=0):
+def bound_ms(n_bytes, n_flops=0, flop_rate=F32_FLOP_PER_S):
     """The least time for the work: the larger of the bytes over the HBM
-    rate and the float32 operations over the card's float32 rate."""
-    return max(n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOP_PER_S) * 1e3
-
-
-def gamma(k):
-    """``gamma_k = k u / (1 - k u)``: a float32 sum of ``k + 1`` terms, in
-    any order or tree, is within ``gamma_k`` times the sum of the terms'
-    magnitudes of their exact sum (Higham, Accuracy and Stability of
-    Numerical Algorithms, 2nd ed., section 4.2). Works on arrays."""
-    return k * U / (1 - k * U)
+    rate and the operations over the card's rate for their type (float32
+    outside the tensor cores unless ``flop_rate`` says otherwise)."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_flops / flop_rate) * 1e3
 
 
 def kernel_modules():
-    from repro_torch.kernels import histogram, route, spmv
-    return route, histogram, spmv
+    from repro_torch.kernels import (flash_attention, histogram, moe_gmm,
+                                     route, spmv)
+    return route, histogram, spmv, moe_gmm, flash_attention
 
 
 def reset_launches():
@@ -337,6 +367,17 @@ def main_shape_kernels(route, routing, setup, device):
 # phase 4/5: the apps
 # ---------------------------------------------------------------------------
 
+def is_port_kernel(key, name):
+    """Whether the profiler's kernel ``key`` is the port's kernel ``name``.
+    The port's kernels sit in a top-level anonymous namespace, so a
+    PyTorch kernel of the same name (``at::native::reduce_kernel``) or
+    one that contains it is not counted."""
+    for prefix in ("(anonymous namespace)::", "void (anonymous namespace)::"):
+        if key.startswith(prefix + name):
+            return key[len(prefix) + len(name):][:1] in ("(", "<")
+    return False
+
+
 def profile_kernels(fn, rounds):
     """One run of ``fn`` under torch.profiler: ``(device ms per round of
     each wrapper's kernels, device ms of all kernels, wall ms of the run,
@@ -360,7 +401,7 @@ def profile_kernels(fn, rounds):
         total += us
         ops.append((ev.key[:60], us / 1e3))
         for wrapper, names in KERNEL_NAMES.items():
-            if any(nm in ev.key for nm in names):
+            if any(is_port_kernel(ev.key, nm) for nm in names):
                 per[wrapper] += us
                 break
     if total == 0.0:
@@ -419,7 +460,8 @@ def leaf_edge_cases(device):
     einsum (full float32). Returns the worst BSR error / tolerance."""
     import numpy as np
     import torch
-    _, hist, spmv = kernel_modules()
+    from repro_torch.kernels import histogram as hist
+    from repro_torch.kernels import spmv
     rng = np.random.default_rng(SEED)
     n_cases = 0
     for n in (0, 1, 997, (1 << 20) + 3):
@@ -474,7 +516,8 @@ def leaf_timed(device, ids):
     Kb = 32, BS = 128, Ncb = 2048, logged beside the row that
     :func:`run_spmv_csr` times at the main path's shape."""
     import torch
-    _, hist, spmv = kernel_modules()
+    from repro_torch.kernels import histogram as hist
+    from repro_torch.kernels import spmv
     rows = {}
     n = ids.numel()
     got = hist.histogram(ids, HIST_BINS)
@@ -563,13 +606,14 @@ def bsr_library_ms(bc, blocks, x, want, r, kb, bs, ncb):
         return None, f"sparse BSR @ x: none ({type(exc).__name__}: {first})"
 
 
-def row(name, err, ms, plain_ms, n_bytes, library_ms, n_flops=0):
-    by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_flops / F32_FLOP_PER_S
+def row(name, err, ms, plain_ms, n_bytes, library_ms, n_flops=0,
+        flop_rate=F32_FLOP_PER_S):
+    by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_flops / flop_rate
           else "operations")
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms(n_bytes, n_flops), "bound_by": by,
+            "bound_ms": bound_ms(n_bytes, n_flops, flop_rate), "bound_by": by,
             "library_ms": library_ms}
 
 
@@ -587,7 +631,7 @@ def reduce_add_timed(routing, device, ids, rows):
     ``scatter_reduce_`` sum beside it; all three exact (whole numbers)."""
     import torch
     from repro_torch.core.queues import QueueConfig
-    route, _, _ = kernel_modules()
+    from repro_torch.kernels import route
     s = 64
     e_local = ids.numel() // s
     n_local = -(-HIST_BINS // s)
@@ -666,6 +710,7 @@ def spmv_bounds(g, x):
     terms within ``2 gamma_k sum|t|`` of each other; the factor 1 + 2^-20
     covers the float64 oracle's own rounding."""
     import numpy as np
+    from repro_torch.kernels.route import gamma
     k = np.diff(g.row_ptr).astype(np.float64)
     mag = np.bincount(g.row_of(), weights=np.abs(
         g.values.astype(np.float64) * x[g.col_idx]), minlength=g.n)
@@ -686,6 +731,7 @@ def pagerank_bound(g, device, damping=0.85, iters=20, n_dev=64):
     reach v through the same sums."""
     import numpy as np
     import torch
+    from repro_torch.kernels.route import gamma
     f64 = torch.float64
     n = g.n
     src = torch.from_numpy(g.row_of()).to(device)
@@ -899,7 +945,7 @@ def run_spmv_csr(device, totals, rows):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.sparse import datasets, ref
-    _, _, spmv = kernel_modules()
+    from repro_torch.kernels import spmv
     g = datasets.erdos_renyi(ER_VERTICES, seed=SEED)
     x = np.random.default_rng(SEED).random(g.n)
     with MainPath("spmv_csr", ("bsr_spmv",), totals) as path:
@@ -932,6 +978,445 @@ def run_spmv_csr(device, totals, rows):
             r["lib_note"])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE layer of OLMoE-1B-7B
+# ---------------------------------------------------------------------------
+
+BUCKET_KERNELS = ("bucket_rank", "bucket_scatter")
+
+
+def moe_setup(device):
+    """OLMoE-1B-7B's config, its MoE parameters and the tokens, from
+    ``torch.Generator`` seed ``SEED`` on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params = init_moe(gen, cfg)
+    x = torch.randn(*MOE_TOKENS, cfg.d_model, generator=gen, device=device)
+    return cfg, params, x
+
+
+def drop_report(stats):
+    """Per bucket stage: its capacity, dropped of routed tasks, and the
+    most any one bucket dropped."""
+    return "; ".join(
+        f"{stage} cap {stats.caps[stage]}: {int(drp.sum())} of "
+        f"{int(adm.sum() + drp.sum())} tasks dropped, most in one bucket "
+        f"{int(drp.max())} ({drp.numel()} buckets)"
+        for stage, (adm, drp) in stats.buckets.items())
+
+
+def same_routing(tag, got, stats, want, want_stats, scale):
+    """Two ``moe_dcra`` runs on the same tokens that must route alike (the
+    bucket kernels and the plain ``"sort"`` route): top-k ids and every
+    bucket's admitted and dropped counts equal, outputs within 1e-5 of
+    max|out| (the combine's ``index_add_`` adds its K terms in any order).
+    Returns the largest |difference|."""
+    import torch
+    if not torch.equal(stats.topk_ids, want_stats.topk_ids):
+        raise AssertionError(f"{tag}: top-k ids differ from the sort route")
+    for stage, counts in want_stats.buckets.items():
+        if not all(torch.equal(a, b) for a, b in zip(stats.buckets[stage],
+                                                       counts)):
+            raise AssertionError(f"{tag}: {stage} bucket counts differ from "
+                                 f"the sort route")
+    err = float((got - want).abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"{tag}: max |out - sort route| {err} above "
+                             f"1e-5 of max|out| {scale}")
+    return err
+
+
+def run_moe(device, totals):
+    """Phase 10: ``moe_dcra`` on the three packagings at the config's
+    capacity factor (drops, layer ms, tokens/s, peak GB, one profiled
+    run), each output held to the no-drop ``moe_einsum`` on the same
+    tokens when nothing dropped (to the plain sort route when something
+    did); without drops on the smaller x against the einsum; and on
+    skewed tokens that overflow the buckets, against the sort route.
+    Returns the fused packaging's stats (its expert buckets feed phase
+    11) and the parameters."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.core.dispatch import MeshInfo, dispatch_queues, moe_dcra
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.queues import QueueConfig
+    from repro_torch.models.moe import moe_einsum
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, params, x = moe_setup(device)
+    torch.cuda.synchronize()
+    n_tokens = x.shape[0] * x.shape[1]
+    mc = cfg.moe
+    log(f"moe {MOE_ARCH}: d_model {cfg.d_model}, {mc.num_experts} experts "
+        f"top-{mc.top_k}, d_expert {mc.d_expert}, capacity factor "
+        f"{mc.capacity_factor}; weights "
+        f"{sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.2f}"
+        f" GB float32 and x {tuple(x.shape)} from torch.Generator seed {SEED} "
+        f"in {time.perf_counter() - t0:.2f} s; TF32 off")
+
+    # the no-drop result on every token: at factor 8 every expert holds
+    # its whole group (capacity 8 K / E tokens a token, K = 8, E = 64), so
+    # a token's output is its own whatever the grouping, and the einsum
+    # runs on slices of MOE_CHECK_TOKENS[0] sequences (8.6 GB each)
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=8.0))
+    nb = MOE_CHECK_TOKENS[0]
+    t1 = time.perf_counter()
+    want = torch.cat([moe_einsum(params, x[i:i + nb], cfg8)[0]
+                      for i in range(0, x.shape[0], nb)])
+    torch.cuda.synchronize()
+    log(f"moe_einsum oracle (capacity factor 8: every expert holds its "
+        f"whole group) on x {tuple(x.shape)} in slices of {nb} sequences: "
+        f"{time.perf_counter() - t1:.2f} s")
+    sort_queues = dataclasses.replace(dispatch_queues(mc), route_impl="sort")
+    fused_stats = None
+    for label, shape, names, kw in MOE_PACKAGINGS:
+        info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with MainPath(f"MoE {label}", BUCKET_KERNELS, totals) as path:
+            out, aux, stats = moe_dcra(params, x, cfg, info,
+                                       return_stats=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(2):
+                moe_dcra(params, x, cfg, info)
+            torch.cuda.synchronize()
+            layer_ms = (time.perf_counter() - t1) / 2 * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if (tuple(out.shape) != tuple(x.shape)
+                or not bool(torch.isfinite(out).all())
+                or not math.isfinite(float(aux))):
+            raise AssertionError(f"MoE {label}: output {tuple(out.shape)} "
+                                 f"not finite or of the wrong shape")
+        if stats.total_dropped == 0:
+            scale = float(want.abs().max())
+            err = float((out - want).abs().max())
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"MoE {label}: no drop, yet max |out - "
+                                     f"moe_einsum| {err} above 1e-4 of "
+                                     f"max|out| {scale}")
+            held = (f"no drop: max |out - moe_einsum| {err:.3e} = "
+                    f"{err / scale:.3e} of max|out| (bound 1e-4)")
+        else:
+            ref, _, ref_stats = moe_dcra(params, x, cfg, info,
+                                         queues=sort_queues,
+                                         return_stats=True)
+            err = same_routing(f"MoE {label}", out, stats, ref, ref_stats,
+                               float(ref.abs().max()))
+            held = (f"drops: counts equal to the sort route's, max |out - "
+                    f"sort route| {err:.3e}")
+            del ref, ref_stats
+        log(f"moe {label}: layer {layer_ms:.2f} ms (mean of 2 runs, host "
+            f"clock, synchronised), tokens/s {n_tokens / layer_ms * 1e3:.4e}, "
+            f"peak {peak_gb:.2f} GB, aux {float(aux):.6f}, launches in the "
+            f"3 runs {path.launches}; {drop_report(stats)}; {held}")
+        if not kw:
+            per_round, device_ms, wall_ms, top = profile_kernels(
+                lambda: moe_dcra(params, x, cfg, info), 1)
+            log_profile(f"moe {label}", per_round, device_ms, wall_ms, top)
+            fused_stats = stats
+        del out, stats
+
+    # no drop: every bucket holds 8x its average load. Factor 8 on all
+    # three queues would compound (the portal and expert queues size from
+    # their already padded inputs: 512x on the pod path), so the dispatch
+    # queue takes 8 and the two after it 1.0 of their inputs.
+    xs = x[:nb, :MOE_CHECK_TOKENS[1]].contiguous()
+    want = want[:nb, :MOE_CHECK_TOKENS[1]]
+    del x
+    scale = float(want.abs().max())
+    queues = QueueConfig(default_iq=None, iq_factors={
+        "dispatch": 8.0, "portal": 1.0, "expert": 1.0})
+    for label, shape, names, kw in MOE_PACKAGINGS:
+        info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+        torch.cuda.empty_cache()
+        with MainPath(f"MoE {label} no-drop", BUCKET_KERNELS, totals) as path:
+            got, _, stats = moe_dcra(params, xs, cfg, info, queues=queues,
+                                     return_stats=True)
+        err = float((got - want).abs().max())
+        if stats.total_dropped or not err <= 1e-4 * scale:
+            raise AssertionError(f"MoE {label} x {tuple(xs.shape)}: "
+                                 f"{stats.total_dropped} drops, max |err| "
+                                 f"{err} vs the einsum (max|out| {scale})")
+        log(f"moe {label} x {tuple(xs.shape)}, no drop (caps "
+            f"{stats.caps}): max |out - moe_einsum| {err:.3e} = "
+            f"{err / scale:.3e} of max|out| (bound 1e-4); launches "
+            f"{path.launches}")
+        del got, stats
+
+    # skewed tokens: every other token leans on one shared direction, so
+    # half of them pick the same experts and the capped buckets overflow
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    xk = xs.clone()
+    xk[:, ::2] = 0.25 * xs[:, ::2] + 2 * torch.randn(
+        cfg.d_model, generator=gen, device=device)
+    for label, shape, names, kw in MOE_PACKAGINGS:
+        info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+        with MainPath(f"MoE {label} skewed", BUCKET_KERNELS, totals) as path:
+            got, _, stats = moe_dcra(params, xk, cfg, info,
+                                     return_stats=True)
+        ref, _, ref_stats = moe_dcra(params, xk, cfg, info,
+                                     queues=sort_queues, return_stats=True)
+        if not stats.total_dropped:
+            raise AssertionError(f"MoE {label}: the skewed tokens dropped "
+                                 f"nothing at factor {mc.capacity_factor}")
+        err = same_routing(f"MoE {label} skewed", got, stats, ref, ref_stats,
+                           float(ref.abs().max()))
+        log(f"moe {label} x {tuple(xk.shape)} skewed, factor "
+            f"{mc.capacity_factor}: {drop_report(stats)}; top-k ids and "
+            f"every bucket's admitted and dropped counts equal to the sort "
+            f"route's, max |out - sort route| {err:.3e}; launches "
+            f"{path.launches}")
+        del got, ref, stats, ref_stats
+    return fused_stats, params
+
+
+# ---------------------------------------------------------------------------
+# phase 11: grouped matmul and flash attention vs their plain versions
+# ---------------------------------------------------------------------------
+
+#: a bf16 flash kernel's mean distance from the plain version, as a share
+#: of the distance with p left unrounded (``unrounded_share``): about
+#: 0.002 when p is rounded as the plain version rounds it, 1 when not
+P_ROUNDED_SHARE = 0.1
+
+
+def gmm_check(gmm_mod, x, w, gids, rt, ft=128):
+    """The kernel against the plain version (float32, TF32 off) within
+    ``moe_gmm.error_bound``: the worst |err| and |err| / bound."""
+    want = gmm_mod.plain_gmm(x, w, gids, rt)
+    got = gmm_mod.gmm(x, w, gids, rt=rt, ft=ft)
+    tol = gmm_mod.error_bound(x, w, gids, rt, want)
+    err = (got.float() - want.float()).abs()
+    ratio = float((err / tol.clamp(min=1e-30)).max())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"gmm off by {ratio:.3f} x its tolerance at "
+                             f"x {tuple(x.shape)} w {tuple(w.shape)} rt {rt} "
+                             f"{x.dtype}")
+    return float(err.max()), ratio
+
+
+def flash_check(flash_mod, q, k, v, causal):
+    """The kernel against the plain version within
+    ``flash_attention.error_bound`` per element, and in bf16 nearer it
+    than the plain version with p unrounded (``P_ROUNDED_SHARE``): the
+    worst |err|, |err| / bound and the share (None in float32)."""
+    import torch
+    want = flash_mod.plain_flash_attention(q, k, v, causal)
+    got = flash_mod.flash_attention(q, k, v, causal)
+    err = (got.float() - want.float()).abs()
+    tol = flash_mod.error_bound(q, k, v, causal, want)
+    ratio = float((err / tol).max())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"flash_attention off by {ratio:.3f} x its "
+                             f"tolerance at {tuple(q.shape)} {q.dtype} "
+                             f"causal={causal}")
+    share = None
+    if q.dtype == torch.bfloat16 and q.shape[-2] > 1:
+        share = flash_mod.unrounded_share(q, k, v, causal, got, want)
+        if not share <= P_ROUNDED_SHARE:
+            raise AssertionError(f"flash_attention bf16 at {tuple(q.shape)}: "
+                                 f"mean |err| is {share:.4f} of the plain "
+                                 f"version's with p unrounded (limit "
+                                 f"{P_ROUNDED_SHARE}): p not rounded as the "
+                                 f"plain version rounds it")
+    return float(err.max()), ratio, share
+
+
+def gmm_flash_edge_cases(device):
+    """gmm at rt 8 / 32 / 64 / 128, D and F off the kernel's tiles, one
+    expert, bf16 and float32, F off ft refused, a group id out of range
+    giving zero rows; flash at one causal tile, non-causal, a ragged S, hd
+    off 16 and 128, bf16 and float32, constant V."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import moe_gmm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, dtype)
+    worst = 0.0
+    cases = [  # (T, D, F, E, rt, ft, dtype)
+        (64, 40, 64, 3, 8, 128, torch.float32),
+        (512, 32, 256, 4, 64, 128, torch.float32),
+        (384, 128, 128, 3, 128, 128, torch.float32),
+        (192, 72, 128, 1, 64, 128, torch.float32),
+        (320, 48, 96, 2, 32, 128, torch.bfloat16),
+        (256, 64, 128, 2, 128, 128, torch.bfloat16),
+        (128, 2048, 192, 5, 64, 64, torch.float32)]
+    for t, d, f, e, rt, ft, dt in cases:
+        gids = torch.from_numpy(rng.integers(0, e, t // rt).astype(
+            np.int32)).to(device)
+        worst = max(worst, gmm_check(moe_gmm, rand(t, d, dtype=dt),
+                                     rand(e, d, f, dtype=dt), gids, rt,
+                                     ft)[1])
+    try:
+        moe_gmm.gmm(rand(128, 16), rand(2, 16, 192),
+                    torch.zeros(1, dtype=torch.int32, device=device))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("gmm took F = 192 with 128-column tiles")
+    if device.type == "cuda":          # the plain version raises instead
+        ones = moe_gmm.gmm(torch.ones(128, 16, device=device),
+                           torch.ones(2, 16, 64, device=device),
+                           torch.tensor([7, 1], dtype=torch.int32,
+                                        device=device), rt=64)
+        if not (bool((ones[:64] == 0).all())
+                and bool((ones[64:] == 16).all())):
+            raise AssertionError("gmm: a group id out of range did not give "
+                                 "zero rows")
+    worst_f, worst_share = 0.0, 0.0
+    for bh, s, hd, dt, causal in [(4, 64, 128, torch.float32, True),
+                                  (4, 128, 64, torch.float32, False),
+                                  (2, 100, 80, torch.float32, True),
+                                  (4, 256, 128, torch.bfloat16, True),
+                                  (3, 200, 32, torch.bfloat16, False),
+                                  (1, 1, 8, torch.float32, True)]:
+        q, k, v = (rand(bh, s, hd, dtype=dt) for _ in range(3))
+        _, ratio, share = flash_check(flash, q, k, v, causal)
+        worst_f, worst_share = max(worst_f, ratio), max(worst_share,
+                                                        share or 0.0)
+        const = flash.flash_attention(q, k, torch.ones_like(v), causal)
+        if not bool(((const.float() - 1).abs() <= 1e-5).all()):
+            raise AssertionError("flash_attention of a constant V is not "
+                                 "that constant")
+    torch.cuda.synchronize()
+    log(f"kernels: gmm {len(cases)} edge cases within tolerance of the plain "
+        f"version (worst |err| / tol {worst:.4f}), F off the column tile "
+        f"refused, an out-of-range group id zero rows; flash_attention 6 "
+        f"edge cases (worst |err| / tol {worst_f:.4f}; bf16 mean |err| "
+        f"{worst_share:.4f} of the p-unrounded plain version's at worst), "
+        f"constant V exact to 1e-5")
+
+
+def gmm_operand(stats):
+    """The fused packaging's expert buckets of all shards as one gmm
+    operand: ``(x [S * E_local * cap_e, D], the expert of every row tile,
+    rt)``, rt the largest of 128/64/32/16/8 dividing cap_e."""
+    import torch
+    xe = stats.expert_rows
+    s, n, d = xe.shape
+    cap_e = n // stats.e_local
+    rt = next(r for r in (128, 64, 32, 16, 8) if cap_e % r == 0)
+    experts = (stats.expert_base[:, None]
+               + torch.arange(stats.e_local, device=xe.device)[None])
+    gids = experts.repeat_interleave(cap_e // rt, dim=1).reshape(-1)
+    return xe.reshape(s * n, d), gids.to(torch.int32).contiguous(), rt, \
+        experts.reshape(-1), cap_e
+
+
+def run_gmm(device, totals, stats, params):
+    """``ops.gmm`` at phase 10's expert buckets with w = wg; its row of the
+    kernel table, ``torch.bmm`` over the buckets as the yardstick."""
+    import torch
+    from repro_torch.kernels import moe_gmm, ops
+    x, gids, rt, bucket_experts, cap_e = gmm_operand(stats)
+    w = params["wg"]
+    t, d = x.shape
+    e, _, f = w.shape
+    with MainPath("ops.gmm at the MoE expert buckets", ("gmm",),
+                  totals) as path:
+        ops.gmm(x, w, gids, rt=rt)
+    err, ratio = gmm_check(moe_gmm, x, w, gids, rt)
+    wsel = w[bucket_experts.long()]                 # [S * E_local, D, F]
+    xb = x.view(-1, cap_e, d)
+    got = moe_gmm.gmm(x, w, gids, rt=rt)
+    lib = torch.bmm(xb, wsel).view(t, f)
+    tol = moe_gmm.error_bound(x, w, gids, rt, got)
+    lib_ok = bool(((lib - got).abs() <= tol).all())
+    del got, lib
+    n_bytes = 4 * (t * d + e * d * f + t * f) + 4 * gids.numel()
+    n_flops = 2 * t * d * f
+    out = row("gmm", err, cuda_ms(lambda: ops.gmm(x, w, gids, rt=rt), 5),
+              cuda_ms(lambda: moe_gmm.plain_gmm(x, w, gids, rt), 2), n_bytes,
+              cuda_ms(lambda: torch.bmm(xb, wsel), 5) if lib_ok else None,
+              n_flops)
+    log(f"kernel gmm at the fused packaging's expert buckets: x [{t}, {d}] "
+        f"({stats.expert_rows.shape[0]} shards x {stats.e_local} experts x "
+        f"cap_e {cap_e}), w [{e}, {d}, {f}], rt {rt}: max |err| {err:.3e} vs "
+        f"the plain version ({ratio:.4f} of the tolerance); launches "
+        f"{path.launches}")
+    log_row(out, f"T={t} D={d} F={f} E={e} rt={rt} float32", n_bytes,
+            "torch.bmm over the [S*E_local, cap_e, D] buckets"
+            if lib_ok else "torch.bmm: none (off the kernel's tolerance)")
+    log(f"kernel gmm: {n_flops:.4e} flops / 67 TFLOP/s (float32) = "
+        f"{n_flops / F32_FLOP_PER_S * 1e3:.4f} ms binds it")
+    del wsel
+    return out
+
+
+def run_flash(device, totals):
+    """``ops.flash_attention`` at OLMoE's attention widths, causal, in
+    bf16 (the kernel table's row) and float32 (``f32_*`` keys), each
+    against the plain version, timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, s, hd = FLASH_SHAPE
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    base = [torch.randn(b, h, s, hd, generator=gen, device=device)
+            for _ in range(3)]
+    n_flops = 4 * b * h * hd * s * (s + 1) // 2     # the causal half
+    out = None
+    for dt, rate, tag in ((torch.bfloat16, BF16_FLOP_PER_S, "bf16"),
+                          (torch.float32, F32_FLOP_PER_S, "float32")):
+        q, k, v = (t.to(dt) for t in base)
+        with MainPath(f"ops.flash_attention {tag}", ("flash_attention",),
+                      totals) as path:
+            ops.flash_attention(q, k, v, causal=True)
+
+        def three(t):
+            return t.reshape(b * h, s, hd)
+        err, ratio, share = flash_check(flash, three(q), three(k), three(v),
+                                        True)
+        want = flash.plain_flash_attention(three(q), three(k), three(v), True)
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib_ok = bool(((three(lib).float() - want.float()).abs()
+                       <= flash.error_bound(three(q), three(k), three(v),
+                                            True, want)).all())
+        del want, lib
+        n_bytes = 4 * b * h * s * hd * q.element_size()
+        r = row("flash_attention", err,
+                cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 5),
+                cuda_ms(lambda: flash.plain_flash_attention(
+                    three(q), three(k), three(v), True), 2), n_bytes,
+                cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 5) if lib_ok else None,
+                n_flops, rate)
+        log(f"kernel flash_attention {tag} causal B={b} H={h} S={s} hd={hd}: "
+            f"max |err| {err:.3e} vs the plain version ({ratio:.4f} of the "
+            f"tolerance"
+            + (f"; mean |err| {share:.4f} of the p-unrounded plain "
+               f"version's" if share is not None else "")
+            + f"); launches {path.launches}")
+        log_row(r, f"{tag}, {n_flops:.4e} flops over "
+                f"{rate / 1e12:.0f} TFLOP/s", n_bytes,
+                "scaled_dot_product_attention(is_causal=True)" if lib_ok
+                else "SDPA: none (off the kernel's tolerance)")
+        if out is None:
+            out = r
+        else:
+            out.update({f"f32_{key}": r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+    return out
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
     return time.perf_counter()
@@ -958,7 +1443,7 @@ def main() -> int:
     from repro_torch.sparse import datasets, ref
     from repro_torch.sparse.options import LaunchOptions
     from repro_torch.sparse.program import _graph_setup
-    route = kernel_modules()[0]
+    from repro_torch.kernels import route
     t_start = t0 = time.perf_counter()
 
     # ---- 1: card + build ---------------------------------------------------
@@ -1032,6 +1517,16 @@ def main() -> int:
     t0 = phase("8 (SSSP/WCC/k-core rmat-18)", t0)
     run_spmv_csr(device, totals, rows)
     t0 = phase("9 (spmv_csr)", t0)
+
+    # ---- 10-11: the MoE layer; gmm and flash attention ---------------------
+    moe_stats, moe_params = run_moe(device, totals)
+    t0 = phase("10 (MoE OLMoE-1B-7B)", t0)
+    gmm_flash_edge_cases(device)
+    rows["gmm"] = run_gmm(device, totals, moe_stats, moe_params)
+    del moe_stats, moe_params
+    torch.cuda.empty_cache()
+    rows["flash_attention"] = run_flash(device, totals)
+    t0 = phase("11 (gmm, flash attention)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

@@ -1,0 +1,43 @@
+"""Architecture registry (counterpart of ``repro/configs/__init__.py``):
+``get_config("<arch-id>")`` for the ids the reference knows. Only the
+architectures whose modules the port has are resolved; the others raise
+``KeyError`` until the LM slice ports them (``ROADMAP.md`` queue 1,
+item 11)."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from .base import ArchConfig, MoEConfig, SSMConfig
+
+# arch-id -> module name (the reference's table)
+_ARCH_MODULES: Dict[str, str] = {
+    "mixtral-8x22b": "mixtral_8x22b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "granite-8b": "granite_8b",
+    "h2o-danube-3-4b": "h2o_danube3_4b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "rwkv6-7b": "rwkv6_7b",
+    "zamba2-7b": "zamba2_7b",
+}
+#: the arch ids whose config modules are ported
+PORTED = ("olmoe-1b-7b",)
+
+ARCH_IDS: List[str] = list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ArchConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
+    if arch not in PORTED:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md queue 1, "
+                       f"item 11); ported: {list(PORTED)}")
+    mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)
+    return mod.CONFIG
+
+
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ARCH_IDS", "PORTED",
+           "get_config"]

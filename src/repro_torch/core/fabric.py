@@ -8,15 +8,29 @@ but every shard lives on ``device``: a shard's arrays are row ``g`` of
 NoC ``all_to_all`` over an axis becomes a transpose
 (:func:`repro_torch.core.routing.noc_all_to_all`) and ``psum`` a sum
 over the shard dimension.
+
+The MoE dispatch runs its ``shard_map`` body on such a fabric (axes
+``("data", "expert", "tp")`` or ``("pod", "data", "expert", "tp")``):
+:meth:`Fabric.shard` / :meth:`Fabric.unshard` cut a global array into
+its per-shard blocks by a partition spec and put them back, and
+:meth:`Fabric.all_gather`, :meth:`Fabric.psum`, :meth:`Fabric.axis_index`
+and :meth:`Fabric.shard_slice` are the
+collectives and index helpers of a ``shard_map`` body, over one axis or
+a tuple of axes (linear index row-major in the tuple's order, as
+``jax.lax.axis_index`` of a tuple).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
+
+#: one axis name, a tuple of names, or None (no axis)
+Axes = Union[None, str, Sequence[str]]
 
 #: conventional names of the axis that crosses pods
 PORTAL_AXIS_NAMES = ("pod", "portal")
@@ -85,3 +99,126 @@ class Fabric:
     def fabric_key(self) -> tuple:
         """Stable identity for the round-function cache."""
         return (self.axis_names, self.shape, str(self.device))
+
+    # ---- axes and the stacked-shard index helpers --------------------
+
+    def _axis_tuple(self, axes: Axes) -> Tuple[str, ...]:
+        """``axes`` as a tuple of names (``None`` -> ``()``)."""
+        if axes is None:
+            return ()
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in names:
+            if a not in self.axis_sizes:
+                raise ValueError(f"no axis {a!r} in {self.axis_names}")
+        return names
+
+    def axis_size(self, axes: Axes) -> int:
+        """Product size of ``axes`` (``None`` -> 1; a name; a tuple)."""
+        return math.prod(self.axis_sizes[a] for a in self._axis_tuple(axes))
+
+    def axis_dims(self, axes: Axes) -> Tuple[int, ...]:
+        """Positions of ``axes`` in the fabric shape, in the given order."""
+        return tuple(self.axis_names.index(a)
+                     for a in self._axis_tuple(axes))
+
+    @cached_property
+    def coords(self) -> np.ndarray:
+        """``[S, n_axes]`` coordinates of each shard (row-major ids)."""
+        grid = np.indices(self.shape).reshape(len(self.shape), -1)
+        return np.ascontiguousarray(grid.T)
+
+    def axis_index(self, axes: Axes) -> np.ndarray:
+        """``[S]`` linear index of each shard over ``axes``, row-major in
+        the given order (zeros for ``None``)."""
+        idx = np.zeros(self.n_devices, np.int64)
+        for d in self.axis_dims(axes):
+            idx = idx * self.shape[d] + self.coords[:, d]
+        return idx
+
+    def _index(self, axes: Axes, device) -> torch.Tensor:
+        return torch.from_numpy(self.axis_index(axes)).to(device)
+
+    # ---- the shard_map boundary ---------------------------------------
+
+    def shard(self, x: torch.Tensor, spec: Sequence[Axes]) -> torch.Tensor:
+        """Per-shard blocks of the global ``x`` under the partition spec
+        ``spec`` (one entry per dimension): ``[S, *block]``, a copy.
+        Shards not named on a dimension hold the same block."""
+        spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+        nb = [self.axis_size(a) for a in spec]
+        for n, size, a in zip(nb, x.shape, spec):
+            if size % n:
+                raise ValueError(f"dimension {size} does not split over "
+                                 f"{a!r} ({n} shards)")
+        blk = [size // n for n, size in zip(nb, x.shape)]
+        view = x.reshape([v for pair in zip(nb, blk) for v in pair])
+        nd = x.dim()
+        view = view.permute([2 * i for i in range(nd)]
+                            + [2 * i + 1 for i in range(nd)])
+        return view[tuple(self._index(a, x.device) for a in spec)]
+
+    def unshard(self, xs: torch.Tensor, spec: Sequence[Axes]) -> torch.Tensor:
+        """Inverse of :meth:`shard`: the global array from per-shard blocks
+        ``[S, *block]``; over axes the spec does not name, the shard at
+        coordinate 0 gives the block."""
+        spec = tuple(spec) + (None,) * (xs.dim() - 1 - len(spec))
+        named = {d for a in spec for d in self.axis_dims(a)}
+        rep = np.flatnonzero((self.coords[:, [d for d in range(len(self.shape))
+                                               if d not in named]] == 0)
+                             .all(axis=1))
+        nb = [self.axis_size(a) for a in spec]
+        blk = list(xs.shape[1:])
+        out = xs.new_empty(nb + blk)
+        rep_t = torch.from_numpy(rep).to(xs.device)
+        out[tuple(self._index(a, xs.device)[rep_t] for a in spec)] = xs[rep_t]
+        nd = len(blk)
+        out = out.permute([v for i in range(nd) for v in (i, nd + i)])
+        return out.reshape([n * b for n, b in zip(nb, blk)])
+
+    # ---- collectives of a shard_map body --------------------------------
+
+    def all_gather(self, x: torch.Tensor, axes: Axes, dim: int
+                   ) -> torch.Tensor:
+        """Tiled ``all_gather`` over ``axes`` along per-shard dimension
+        ``dim`` of ``x [S, ...]``: every shard gets its peers' blocks
+        concatenated in their linear order over ``axes``."""
+        dims = self.axis_dims(axes)
+        if not dims:
+            return x
+        n, rest = len(self.shape), list(x.shape[1:])
+        y = x.reshape(*self.shape, *rest)
+        others = [d for d in range(n) if d not in dims]
+        perm = (others + [n + i for i in range(dim)] + list(dims)
+                + [n + i for i in range(dim, len(rest))])
+        gathered = rest[:dim] + [self.axis_size(axes) * rest[dim]] + rest[dim + 1:]
+        g = y.permute(perm).reshape([self.shape[d] for d in others]
+                                    + gathered)
+        for d in sorted(dims):              # the same on every peer
+            g = g.unsqueeze(d)
+        return g.expand(*self.shape, *gathered).reshape(x.shape[0],
+                                                        *gathered)
+
+    def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """Sum of ``x [S, ...]`` over the peers along ``axes``, on each."""
+        dims = self.axis_dims(axes)
+        if not dims:
+            return x
+        y = x.reshape(*self.shape, *x.shape[1:])
+        return y.sum(dim=dims, keepdim=True).expand_as(y).reshape(x.shape)
+
+    def shard_slice(self, x: torch.Tensor, axes: Axes, dim: int
+                    ) -> torch.Tensor:
+        """Each shard's block ``axis_index(axes)`` of ``axis_size(axes)``
+        equal blocks along per-shard dimension ``dim`` (the inverse of
+        :meth:`all_gather`; ``dynamic_slice_in_dim`` at the shard's
+        index)."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        size = x.shape[1 + dim]
+        if size % n:
+            raise ValueError(f"dimension {size} does not split in {n}")
+        v = x.reshape(*x.shape[:1 + dim], n, size // n, *x.shape[2 + dim:])
+        v = v.movedim(1 + dim, 1)
+        rows = torch.arange(x.shape[0], device=x.device)
+        return v[rows, self._index(axes, x.device)]

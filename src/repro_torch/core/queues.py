@@ -17,6 +17,10 @@ def round8(x: int) -> int:
     return max(8, -(-x // 8) * 8)
 
 
+# The MoE dispatch's bounded-queue task names (see for_moe_dispatch).
+MOE_DISPATCH_TASKS = ("dispatch", "portal", "expert")
+
+
 @dataclass
 class QueueConfig:
     iq_sizes: Dict[str, int] = field(default_factory=dict)
@@ -60,3 +64,11 @@ class QueueConfig:
     @classmethod
     def from_cap(cls, cap: int, task: str = "T3") -> "QueueConfig":
         return cls(default_iq=None, iq_sizes={task: int(cap)})
+
+    @classmethod
+    def for_moe_dispatch(cls, factor: float) -> "QueueConfig":
+        """The MoE dispatch's three bounded buckets (stage-1 tile-NoC
+        "dispatch", stage-2 pod portal "portal", per-local-expert receive
+        "expert") at one capacity factor."""
+        return cls(default_iq=None,
+                   iq_factors={t: factor for t in MOE_DISPATCH_TASKS})

@@ -19,6 +19,7 @@ Shard id on the pod/portal path: ``g = pod * n_intra + intra``.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -113,63 +114,115 @@ def bucket(x_tasks, dest, valid, aux_ints, n_buckets, cap, impl=None):
     return (xb[..., 0] if squeeze else xb), ints, task_slot, n_drop
 
 
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``rows[s, r] = table[s, ids[s, r]]``, a zero row where the id is -1
+    (``repro/core/routing.py:194``): ``table [S, M, D]``, ``ids [S, R]``
+    -> ``[S, R, D]``."""
+    s, m, d = table.shape
+    flat = (ids.long().clamp(min=0)
+            + torch.arange(s, device=ids.device)[:, None] * m).reshape(-1)
+    rows = table.reshape(s * m, d).index_select(0, flat).view(*ids.shape, d)
+    return rows.mul_((ids >= 0)[..., None].to(rows.dtype))
+
+
+def slot_scatter(data: torch.Tensor, slot: torch.Tensor, valid: torch.Tensor,
+                 num_slots: int) -> torch.Tensor:
+    """Scatter the valid rows of ``data [S, N, D]`` into ``num_slots``
+    slots of each shard (``repro/core/routing.py:145``): slot
+    ``slot[s, i]``, at most one valid row a slot; slots that get none
+    hold 0. -> ``[S, num_slots, D]``. A copy, not a sum: with one writer
+    a slot the two agree (but for the sign of a zero), and a copy sends
+    the invalid rows to one spare slot a shard without contention."""
+    s, n, d = data.shape
+    seg = torch.where(valid, slot.long(), num_slots)
+    flat = (seg + torch.arange(s, device=seg.device)[:, None]
+            * (num_slots + 1)).reshape(-1)
+    out = data.new_zeros(s * (num_slots + 1), d)
+    out.index_copy_(0, flat, data.reshape(s * n, d))
+    return out.view(s, num_slots + 1, d)[:, :num_slots]
+
+
 # ---------------------------------------------------------------------------
 # the NoC round: one fused all_to_all
 # ---------------------------------------------------------------------------
 
-def noc_all_to_all(x, shape: Sequence[int], dim: int):
-    """The tiled ``all_to_all`` over fabric axis ``dim`` of ``shape``:
-    ``x [S, B*rows, C]`` holds, per shard, one block of ``rows`` for each
-    of the ``B = shape[dim]`` peers along that axis. Shard ``d`` receives
-    block ``d`` of every peer, in peer order, as
-    ``lax.all_to_all(x, axis, 0, 0, tiled=True)`` delivers it."""
+def noc_all_to_all(x, shape: Sequence[int], dim):
+    """The tiled ``all_to_all`` over fabric axis ``dim`` of ``shape`` (or
+    over a tuple of axes, the peers in their linear order over the tuple,
+    as ``lax.all_to_all`` over a tuple of axis names): ``x [S, B*rows,
+    C]`` holds, per shard, one block of ``rows`` for each of the ``B``
+    peers. Shard ``d`` receives block ``d`` of every peer, in peer
+    order."""
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
     s, total, c = x.shape
-    b = shape[dim]
-    y = x.reshape(*shape, b, total // b, c)
-    return y.transpose(dim, len(shape)).reshape(s, total, c)
+    n = len(shape)
+    peers = [shape[d] for d in dims]
+    y = x.reshape(*shape, *peers, total // math.prod(peers), c)
+    perm = list(range(n + len(dims) + 2))
+    for j, d in enumerate(dims):            # swap fabric dim d with block j
+        perm[d], perm[n + j] = perm[n + j], perm[d]
+    return y.permute(perm).reshape(s, total, c)
+
+
+HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
 def pack_wire(vals: Optional[torch.Tensor], int_cols: Sequence[torch.Tensor]
               ) -> Tuple[torch.Tensor, tuple]:
-    """Pack float32 value columns + int32 metadata columns into one f32
-    wire array ``[S, R, C]``. Ints are bitcast (``Tensor.view``), never
-    converted, so -1 travels as a NaN pattern untouched. Returns
-    ``(packed, meta)`` for :func:`unpack_wire`. (The reference also packs
-    half-width payloads two per lane; no app of this slice sends one.)"""
+    """Pack value columns + int32 metadata columns into one f32 wire array
+    ``[S, R, C]``. Ints are bitcast (``Tensor.view``), never converted,
+    so -1 travels as a NaN pattern untouched. Half-width payloads (bf16,
+    f16) are bitcast two to a float32 lane, an odd width padded with a
+    zero column, so the wire has ``ceil(D/2) + len(int_cols)`` columns
+    (``repro/core/routing.py:210-249``). Returns ``(packed, meta)`` for
+    :func:`unpack_wire`."""
     if vals is None and not int_cols:
         raise ValueError("nothing to route")
     cols = []
     squeeze = False
+    dtype, d_vals, half = None, 0, False
     if vals is not None:
-        if vals.dtype != torch.float32:
-            raise TypeError(f"wire payloads are float32, got {vals.dtype}")
+        dtype = vals.dtype
+        if dtype != torch.float32 and dtype not in HALF_TYPES:
+            raise TypeError(f"wire payloads are float32, bfloat16 or "
+                            f"float16, got {dtype}")
         if vals.dim() == 2:
             vals, squeeze = vals[..., None], True
+        d_vals = vals.shape[-1]
+        half = dtype in HALF_TYPES
+        if half:
+            if d_vals % 2:
+                vals = torch.cat([vals, vals.new_zeros(*vals.shape[:-1], 1)],
+                                 dim=-1)
+            vals = vals.contiguous().view(torch.float32)
         cols.append(vals)
     for c in int_cols:
         cols.append(c.to(torch.int32).view(torch.float32)[..., None])
     packed = cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
-    return packed, (vals is not None, squeeze, len(int_cols))
+    return packed, (dtype, d_vals, half, squeeze, len(int_cols))
 
 
 def unpack_wire(recv: torch.Tensor, meta: tuple
                 ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     """Exact inverse of :func:`pack_wire` (bitcast round trip)."""
-    has_vals, squeeze, n_int = meta
+    dtype, d_vals, half, squeeze, n_int = meta
     c = recv.shape[-1]
     ints = [recv[..., c - n_int + i].contiguous().view(torch.int32)
             for i in range(n_int)]
-    if not has_vals:
+    if dtype is None:
         return None, ints
-    v_out = recv[..., :c - n_int]
+    v_out = recv[..., :c - n_int].contiguous()
+    if half:
+        v_out = v_out.view(dtype)[..., :d_vals].contiguous()
     if squeeze:
-        v_out = v_out[..., 0]
-    return v_out.contiguous(), ints
+        v_out = v_out[..., 0].contiguous()
+    return v_out, ints
 
 
-def fused_all_to_all(vals, int_cols, shape: Sequence[int], dim: int):
+def fused_all_to_all(vals, int_cols, shape: Sequence[int], dim):
     """Deliver value + int32 columns in ONE exchange over fabric axis
-    ``dim`` (see :func:`pack_wire` and :func:`noc_all_to_all`)."""
+    ``dim`` or a tuple of axes (see :func:`pack_wire` and
+    :func:`noc_all_to_all`)."""
     packed, meta = pack_wire(vals, int_cols)
     return unpack_wire(noc_all_to_all(packed, shape, dim), meta)
 

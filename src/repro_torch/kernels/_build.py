@@ -23,6 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_F32 = ctypes.c_float
 #: C entry points of each source (``csrc/<name>.cu``) and their arguments
 _SIGNATURES = {
     "route": {
@@ -37,6 +38,14 @@ _SIGNATURES = {
     },
     "spmv": {
         "dcra_bsr_spmv": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P),
+    },
+    "gmm": {
+        "dcra_gmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                     _I32, _P),
+    },
+    "flash_attention": {
+        "dcra_flash_attention": (_P, _P, _P, _P, _I64, _I32, _I32, _F32,
+                                 _I32, _I32, _P),
     },
 }
 

@@ -1,0 +1,143 @@
+"""The flash-attention kernel and its plain version (counterpart of
+``repro/kernels/flash_attention.py``, ``flash_attention_pallas``).
+
+``o = softmax(q k^T * hd^-0.5, causal mask -1e30) v`` over ``[BH, S,
+hd]``, as an online softmax over key tiles: float32 logits and m / l /
+acc, ``p`` rounded to v's type before ``p @ v``, ``l`` clamped at 1e-30,
+the output in q's type.
+
+On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
+(``csrc/flash_attention.cu``, 64-row q and key tiles) and adds one to
+``LAUNCHES["flash_attention"]``; on a CPU tensor it runs
+:func:`plain_flash_attention` with the same key tile. Any other device
+raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .route import _check, _on_cuda, _raise_on, _stream, gamma
+
+TILE = 64              # the kernel's q and key tile
+MAX_HEAD_DIM = 128
+NEG_INF = -1e30
+DTYPES = (torch.float32, torch.bfloat16)
+
+#: kernel launches since the last reset (chip_smoke reads this)
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, tk: int = TILE
+                          ) -> torch.Tensor:
+    """The TPU kernel's online softmax, every q row at once, one key tile
+    of ``tk`` rows a step in order. A causal tile above a row's diagonal
+    is fully masked there, which leaves m, l and acc exactly as skipping
+    it would (the row's max is finite from the first tile on), so the
+    q tile size does not enter."""
+    bh, s, hd = q.shape
+    scale = hd ** -0.5
+    qf = q.float()
+    m = torch.full((bh, s), NEG_INF, device=q.device)
+    l = torch.zeros(bh, s, device=q.device)
+    acc = torch.zeros(bh, s, hd, device=q.device)
+    qi = torch.arange(s, device=q.device)[:, None]
+    for k0 in range(0, s, tk):
+        kt, vt = k[:, k0:k0 + tk].float(), v[:, k0:k0 + tk]
+        sc = torch.matmul(qf, kt.transpose(1, 2)) * scale
+        if causal:
+            kj = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None]
+            sc = torch.where(kj <= qi, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                    vt.float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, want: torch.Tensor) -> torch.Tensor:
+    """Per element ``[BH, S, hd]``: how far the kernel and
+    :func:`plain_flash_attention` (``want``) may lie apart on these
+    inputs, in units of ``W = sum_j w_j |v_j|``, the row's softmax
+    weights over |v| (the plain version on float32 inputs and |v|):
+
+    * logits: two runs differ by at most ``e = 2 gamma(hd) hd^-0.5 |q_i|
+      max_j |k_j|`` (Cauchy-Schwarz on sum |q k|), so each weight
+      ``p_j / l`` moves by a factor within exp(+-2e), the output by at
+      most ``(e^2e - 1) W <= 4e W``;
+    * each run's p v sums and l lie within gamma(S) of their magnitude
+      sums, and the exps and per-tile rescales add a few roundings each:
+      ``4 gamma(S + 2 n_tiles + 32) W`` for the two runs;
+    * in bf16 a p rounded to bf16 may land one ulp (at most 2^-7 of p)
+      off the other run's, ``2^-7 W``, and the output one ulp, ``2^-7
+      |want|``.
+
+    W is the size of the row's weighted |v|, not max|v|: at S = 4096 with
+    random inputs W is about 0.8 and |o| about 0.04, so the float32 bound
+    is a few percent of |o|."""
+    s, hd = q.shape[-2], q.shape[-1]
+    qn = q.float().norm(dim=-1, keepdim=True)
+    kn = k.float().norm(dim=-1).amax(-1)[..., None, None]
+    e = 2 * gamma(hd) * hd ** -0.5 * qn * kn
+    w = plain_flash_attention(q.float(), k.float(), v.float().abs(), causal)
+    tol = (4 * e + 4 * gamma(s + 2 * math.ceil(s / TILE) + 32)) * w
+    if q.dtype.itemsize == 2:
+        tol = tol + 2.0 ** -7 * (w + want.float().abs())
+    return tol
+
+
+def unrounded_share(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, got: torch.Tensor, want: torch.Tensor
+                    ) -> float:
+    """bf16: ``mean |got - want|`` over ``mean |u - want|``, u the plain
+    version with p left in float32. The per-element bound admits every p
+    one ulp off, so it cannot tell a kernel that skips the rounding of p;
+    this can. A kernel that rounds p to bf16 at the plain version's
+    running max (the same key tiles) lies far nearer ``want`` than u does
+    (about 0.002 of u's distance on random inputs); one that leaves p
+    unrounded gives 1."""
+    loose = plain_flash_attention(q, k, v.float(), causal)
+    gap = float((loose.float() - want.float()).abs().mean())
+    return float((got.float() - want.float()).abs().mean()) / gap
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """``q, k, v [BH, S, hd]`` -> ``[BH, S, hd]`` in q's type. On the
+    card: float32 or bfloat16 alike, contiguous, ``hd <= 128``, ``BH <=
+    65535``; any S (a ragged last tile is masked)."""
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"need q, k, v [BH, S, hd] alike, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not _on_cuda(q):
+        return plain_flash_attention(q, k, v, causal)
+    bh, s, hd = q.shape
+    dev = q.device
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: expected one of {DTYPES}, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, q.dtype, q.shape, dev)
+    if not 1 <= hd <= MAX_HEAD_DIM or bh > 65535:
+        raise ValueError(f"the kernel takes 1 <= hd <= {MAX_HEAD_DIM} and "
+                         f"BH <= 65535, got hd={hd}, BH={bh}")
+    o = torch.empty_like(q)
+    if bh == 0 or s == 0:
+        return o
+    from ._build import library
+    _raise_on(library("flash_attention").dcra_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd,
+        hd ** -0.5, int(causal), DTYPES.index(q.dtype), _stream(dev)),
+        "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return o

@@ -35,6 +35,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def gamma(k):
+    """``gamma_k = k u / (1 - k u)``, u = 2^-24: a float32 sum of ``k + 1``
+    terms, in any order or tree, is within ``gamma_k`` times the sum of
+    their magnitudes of the exact sum (Higham, Accuracy and Stability of
+    Numerical Algorithms, 2nd ed., section 4.2). Works on arrays."""
+    u = 2.0 ** -24
+    return k * u / (1 - k * u)
+
+
 def resolve_route_impl(impl=None) -> str:
     """``None``/``"auto"`` -> ``"pallas"``, the kernel tier."""
     if impl in (None, "auto"):

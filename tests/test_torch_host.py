@@ -59,6 +59,37 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert int(out.stdout.split()[-1]) >= 15      # every module imported
 
 
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """Every import in ``chip_smoke.py``, those inside functions too, is of
+    the standard library, numpy, torch or the port."""
+    import ast
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    tree = ast.parse(open(path).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """No card (this CPU host), or the script alone without the
+    repository: exit code 2 and no result line."""
+    src = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(src).read())
+    for script in (src, str(alone)):
+        out = subprocess.run([sys.executable, script], capture_output=True,
+                             text=True, timeout=120, cwd=tmp_path,
+                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert out.returncode == 2, out.stderr[-2000:]
+        assert '"ok"' not in out.stdout
+
+
 def test_entry_point_raises_without_cuda(monkeypatch):
     from repro_torch.sparse.torch_apps import dcra_bfs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (routing, histogram, BSR SpMV) against their
-plain PyTorch versions.
+"""The port's CUDA kernels (routing, histogram, BSR SpMV, grouped matmul,
+flash attention) against their plain PyTorch versions.
 
 This file imports torch, numpy and the port only (no jax), so that it
 runs on a machine with a card:
@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import histogram as thist
+from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import route as troute
 from repro_torch.kernels import spmv as tspmv
 
@@ -217,3 +219,225 @@ def test_cuda_leaf_wrappers_check_their_inputs(cuda_device):
         tspmv.bsr_spmv(bc.cpu(), blocks, torch.zeros(16, device=cuda_device))
     with pytest.raises(ValueError, match="expected a tensor on"):
         tspmv.bsr_spmv(bc, blocks, torch.zeros(16))
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul and flash attention
+# ---------------------------------------------------------------------------
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_gmm_and_flash_take_the_plain_version_on_cpu():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 16, 32)).astype(np.float32))
+    gids = torch.tensor([2, 0], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((2, 70, 8)).astype(np.float32))
+    tgmm.reset_launches()
+    tflash.reset_launches()
+    assert torch.equal(tgmm.gmm(x, w, gids, rt=32),
+                       tgmm.plain_gmm(x, w, gids, 32))
+    assert torch.equal(tflash.flash_attention(q, q, q),
+                       tflash.plain_flash_attention(q, q, q))
+    assert tgmm.LAUNCHES == {"gmm": 0}
+    assert tflash.LAUNCHES == {"flash_attention": 0}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tgmm.gmm(x.to("meta"), w.to("meta"), gids.to("meta"), rt=32)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tflash.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def _gmm_variant(x, w, gids, rt, fault):
+    """A float64 grouped matmul, right or with one fault, in x's type."""
+    xt = x.double().view(-1, rt, x.shape[1])
+    ids = gids.long().clone()
+    if fault == "neighbour's expert":
+        ids[0] = (ids[0] + 1) % w.shape[0]
+    wd = w.double()
+    if fault == "last D column dropped":
+        xt, wd = xt[..., :-1], wd[:, :-1]
+    return torch.einsum("trd,tdf->trf", xt, wd[ids]).reshape(
+        x.shape[0], -1).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", [None, "neighbour's expert",
+                                   "last D column dropped"])
+def test_gmm_error_bound_rejects_wrong_kernels(dtype, fault):
+    """The bound the card tests hold the kernel to admits a correct
+    float64 result and refuses each fault."""
+    rng = np.random.default_rng(3)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((256, 72)).astype(
+        np.float32)).to(dt)
+    w = torch.from_numpy(rng.standard_normal((3, 72, 64)).astype(
+        np.float32)).to(dt)
+    gids = torch.tensor([2, 0, 1, 2], dtype=torch.int32)
+    want = tgmm.plain_gmm(x, w, gids, 64)
+    err = (_gmm_variant(x, w, gids, 64, fault).float()
+           - want.float()).abs()
+    held = bool((err <= tgmm.error_bound(x, w, gids, 64, want)).all())
+    assert held == (fault is None)
+
+
+def _flash_variant(q, k, v, causal, fault):
+    """The online softmax over 64-row key tiles in float64, right or with
+    one fault, in q's type (p rounded to v's type unless the fault says
+    otherwise)."""
+    bh, s, hd = q.shape
+    f64 = torch.float64
+    m = torch.full((bh, s), -1e30, dtype=f64)
+    l = torch.zeros(bh, s, dtype=f64)
+    acc = torch.zeros(bh, s, hd, dtype=f64)
+    qi = torch.arange(s)[:, None]
+    for k0 in range(0, s, tflash.TILE):
+        kt, vt = k[:, k0:k0 + tflash.TILE].double(), v[:, k0:k0 + tflash.TILE]
+        sc = q.double() @ kt.transpose(1, 2) * hd ** -0.5
+        kj = torch.arange(k0, k0 + kt.shape[1])[None]
+        if causal:
+            sc = torch.where(
+                kj < qi if fault == "diagonal masked" else kj <= qi, sc, -1e30)
+        if fault == "first key tile skipped" and k0 == 0:
+            sc = torch.where(qi >= tflash.TILE, -1e30, sc)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = (l if fault == "l not rescaled" else l * alpha) + p.sum(-1)
+        if fault != "p unrounded":
+            p = p.to(v.dtype).double()
+        acc = acc * alpha[..., None] + p @ vt.double()
+        m = m_new
+    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", [None, "p unrounded", "diagonal masked",
+                                   "first key tile skipped",
+                                   "l not rescaled"])
+def test_flash_error_bound_rejects_wrong_kernels(dtype, fault):
+    """The bound the card tests hold the kernel to (per element, and in
+    bf16 the share against the p-unrounded plain version) admits a
+    correct float64 online softmax and refuses each fault that changes
+    the result (p unrounded is no fault in float32)."""
+    rng = np.random.default_rng(4)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 256, 64)).astype(
+        np.float32)).to(dt) for _ in range(3))
+    want = tflash.plain_flash_attention(q, k, v, True)
+    got = _flash_variant(q, k, v, True, fault)
+    err = (got.float() - want.float()).abs()
+    held = bool((err <= tflash.error_bound(q, k, v, True, want)).all())
+    if dtype == "bfloat16":
+        held = held and tflash.unrounded_share(q, k, v, True, got,
+                                               want) <= 0.1
+    is_fault = fault is not None and not (fault == "p unrounded"
+                                          and dtype == "float32")
+    assert held != is_fault
+
+
+# (T, D, F, E, rt, ft, dtype): the CPU tier's shapes, rt = 8 / 32 / 64,
+# D off the 16-deep step, F off the 64-column tile, one expert, bf16
+GMM_CUDA_CASES = [
+    (256, 64, 128, 2, 128, 128, "float32"), (512, 32, 256, 4, 128, 128,
+                                             "float32"),
+    (384, 128, 128, 3, 128, 128, "float32"), (64, 40, 64, 3, 8, 128,
+                                              "float32"),
+    (192, 72, 128, 1, 64, 128, "float32"), (320, 48, 96, 2, 32, 128,
+                                            "bfloat16"),
+    (256, 64, 128, 2, 128, 128, "bfloat16"), (128, 2048, 192, 5, 64, 64,
+                                              "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_CUDA_CASES)
+def test_cuda_gmm_matches_plain(cuda_device, case):
+    t, d, f, e, rt, ft, dtype = case
+    rng = np.random.default_rng(t + d + f)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32)).to(
+        cuda_device, dt)
+    w = torch.from_numpy(rng.standard_normal((e, d, f)).astype(
+        np.float32)).to(cuda_device, dt)
+    gids = torch.from_numpy(rng.integers(0, e, t // rt).astype(np.int32)).to(
+        cuda_device)
+    _no_tf32()
+    want = tgmm.plain_gmm(x, w, gids, rt)
+    tgmm.reset_launches()
+    got = tgmm.gmm(x, w, gids, rt=rt, ft=ft)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES["gmm"] == 1
+    assert got.dtype == dt and got.shape == (t, f)
+    tol = tgmm.error_bound(x, w, gids, rt, want)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_cuda_gmm_checks_its_inputs(cuda_device):
+    x = torch.zeros(128, 16, device=cuda_device)
+    w = torch.ones(2, 16, 192, device=cuda_device)
+    gids = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="column tiles"):
+        tgmm.gmm(x, w, gids)                              # F % 128 != 0
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tgmm.gmm(x[:12], w, gids, rt=12, ft=64)
+    with pytest.raises(TypeError):
+        tgmm.gmm(x, w.bfloat16(), gids, ft=64)
+    with pytest.raises(TypeError):
+        tgmm.gmm(x.double(), w.double(), gids, ft=64)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tgmm.gmm(x, w, gids.cpu(), ft=64)
+    # a group id outside [0, E) gives zero rows, never an out-of-bounds read
+    out = tgmm.gmm(x + 1, w, torch.tensor([5, 0], dtype=torch.int32,
+                                          device=cuda_device), rt=64, ft=64)
+    torch.cuda.synchronize()
+    assert bool((out[:64] == 0).all()) and bool((out[64:] == 16).all())
+
+
+# (BH, S, hd, dtype, causal): one causal tile, ragged S, hd off 16, hd 128
+FLASH_CUDA_CASES = [(4, 128, 64, "float32", True), (4, 128, 64, "float32",
+                                                    False),
+                    (4, 64, 128, "float32", True), (2, 100, 80, "float32",
+                                                    True),
+                    (4, 256, 128, "bfloat16", True), (4, 256, 128, "bfloat16",
+                                                      False),
+                    (1, 1, 8, "float32", True), (3, 200, 32, "bfloat16", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CUDA_CASES)
+def test_cuda_flash_attention_matches_plain(cuda_device, case):
+    bh, s, hd, dtype, causal = case
+    rng = np.random.default_rng(bh * s + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, hd)).astype(
+        np.float32)).to(cuda_device, getattr(torch, dtype)) for _ in range(3))
+    _no_tf32()
+    want = tflash.plain_flash_attention(q, k, v, causal)
+    tflash.reset_launches()
+    got = tflash.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = tflash.error_bound(q, k, v, causal, want)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    if dtype == "bfloat16":      # p rounded where the plain version rounds it
+        assert tflash.unrounded_share(q, k, v, causal, got, want) <= 0.1
+    ones = tflash.flash_attention(q, k, torch.ones_like(v), causal)
+    assert bool(((ones.float() - 1).abs() <= 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_checks_its_inputs(cuda_device):
+    q = torch.zeros(2, 64, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        tflash.flash_attention(q, q, q)
+    q = q[..., :64].contiguous()
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               q, q)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tflash.flash_attention(q, q.cpu(), q)
+

@@ -1,9 +1,10 @@
 """The port's leaf kernels and their host side against the JAX package, on
 the CPU.
 
-The histogram and BSR-SpMV wrappers run their plain PyTorch versions on
-CPU tensors; these are held against the Pallas kernels (interpret mode)
-and the ``kernels/ref.py`` oracles on the same numpy inputs. The host
+The histogram, BSR-SpMV, grouped-matmul and flash-attention wrappers run
+their plain PyTorch versions on CPU tensors; these are held against the
+Pallas kernels (interpret mode) and the ``kernels/ref.py`` oracles on the
+same numpy inputs. The host
 side (``csr_to_bsr``, ``histogram_data``, the numpy oracles of the
 add-reduce and stream apps) must be byte-identical to the reference.
 """
@@ -14,14 +15,18 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ref as jkref
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.histogram import histogram_pallas
+from repro.kernels.moe_gmm import gmm_pallas
 from repro.kernels.spmv import bsr_spmv_pallas
 from repro.kernels.spmv import csr_to_bsr as j_csr_to_bsr
 from repro.kernels.spmv import spmv_csr as j_spmv_csr
 from repro.sparse import datasets as jdata
 from repro.sparse import jax_apps as japps
 from repro.sparse import ref as jref
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import histogram as thist
+from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import spmv as tspmv
 from repro_torch.sparse import csr as tcsr
@@ -220,3 +225,151 @@ def test_task_streams_byte_identical(gname, n_dev, seed):
     want += japps.histogram_task_stream(els, n_dev)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul
+# ---------------------------------------------------------------------------
+
+# (T, D, F, E, rt): tests/test_kernels.py's shapes
+GMM_CASES = [(256, 64, 128, 2, 128), (512, 32, 256, 4, 128),
+             (384, 128, 128, 3, 128)]
+
+
+def _gmm_inputs(seed, t, d, f, e, rt):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    w = rng.standard_normal((e, d, f)).astype(np.float32)
+    gids = rng.integers(0, e, t // rt).astype(np.int32)
+    return x, w, gids
+
+
+@pytest.mark.parametrize("t,d,f,e,rt", GMM_CASES)
+def test_plain_gmm_matches_pallas(t, d, f, e, rt):
+    """|Δ| < 1e-4 against ``gmm_pallas`` (interpret) and ``gmm_ref``, the
+    bound of ``tests/test_kernels.py`` (float32 sums of the same D
+    products in another order); the wrapper takes the plain version."""
+    x, w, gids = _gmm_inputs(t + e, t, d, f, e, rt)
+    got = tgmm.plain_gmm(_t(x), _t(w), _t(gids), rt)
+    assert got.dtype == torch.float32 and got.shape == (t, f)
+    for want in (gmm_pallas(jnp.asarray(x), jnp.asarray(w),
+                            jnp.asarray(gids), rt=rt),
+                 jkref.gmm_ref(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(gids))):
+        assert np.max(np.abs(got.numpy() - np.asarray(want))) < 1e-4
+    assert torch.equal(tops.gmm(_t(x), _t(w), _t(gids), rt=rt), got)
+
+
+def test_plain_gmm_bf16_matches_pallas():
+    """bf16 x and w, rt = 64: both sides sum the same exact float32
+    products (a bf16 product fits in float32) in another order and round
+    to bf16, so they may land on neighbouring bf16 values: within one
+    bf16 ulp (2^-7 of the value) plus the float32 sums' 2*D*2^-24 of
+    sum |x*w|."""
+    t, d, f, e, rt = 256, 64, 128, 3, 64
+    x, w, gids = _gmm_inputs(7, t, d, f, e, rt)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    wb = jnp.asarray(w).astype(jnp.bfloat16)
+    want = np.asarray(gmm_pallas(xb, wb, jnp.asarray(gids), rt=rt)
+                      .astype(jnp.float32))
+    got = tgmm.plain_gmm(_t(x).bfloat16(), _t(w).bfloat16(), _t(gids), rt)
+    assert got.dtype == torch.bfloat16
+    xf = np.asarray(xb.astype(jnp.float32), np.float64)
+    wf = np.asarray(wb.astype(jnp.float32), np.float64)
+    scale = np.concatenate([np.abs(xf[i * rt:(i + 1) * rt]) @ np.abs(wf[g])
+                            for i, g in enumerate(gids)])
+    tol = 2.0 ** -7 * np.abs(want) + 2 * d * 2.0 ** -24 * scale
+    assert np.all(np.abs(got.float().numpy() - want) <= tol)
+
+
+def test_gmm_wrapper_contract_on_cpu():
+    """The reference's tile contract: F split into ``ft`` tiles, T into
+    ``rt`` tiles, one group id a row tile; no launch on the CPU."""
+    x, w, gids = _gmm_inputs(3, 256, 16, 192, 2, 128)
+    tgmm.reset_launches()
+    with pytest.raises(ValueError, match="column tiles"):
+        tops.gmm(_t(x), _t(w), _t(gids))             # F = 192, ft = 128
+    out = tops.gmm(_t(x), _t(w), _t(gids), ft=64)
+    assert out.shape == (256, 192)
+    with pytest.raises(ValueError, match="group_ids"):
+        tops.gmm(_t(x), _t(w[..., :128]), _t(gids[:1]))
+    with pytest.raises(ValueError, match="row tiles"):
+        tops.gmm(_t(x[:200]), _t(w[..., :128]), _t(gids))
+    with pytest.raises(ValueError, match="group ids must lie"):
+        tops.gmm(_t(x), _t(w[..., :128]), _t(gids + 2))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tops.gmm(_t(x).to("meta"), _t(w[..., :128]).to("meta"),
+                 _t(gids).to("meta"))
+    assert tgmm.LAUNCHES == {"gmm": 0}
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# (S, hd, tq, tk, dtype): tests/test_kernels.py's cases
+FLASH_CASES = [(128, 64, 64, 64, "float32"), (256, 64, 128, 64, "float32"),
+               (256, 128, 64, 128, "float32"), (128, 64, 64, 64, "bfloat16")]
+
+
+def _qkv(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    return ([_t(a).to(getattr(torch, dtype)) for a in arrs],
+            [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hd,tq,tk,dtype", FLASH_CASES)
+def test_plain_flash_attention_matches_pallas(s, hd, tq, tk, dtype, causal):
+    """The plain online softmax with the Pallas kernel's key tile against
+    ``flash_attention_pallas`` (interpret), and the wrapper (64-row
+    tiles, as the CUDA kernel) against ``flash_attention_ref``: the
+    bounds of ``tests/test_kernels.py``, 1e-5 in float32 (sums in another
+    order) and 2e-2 in bf16 (p and the output round to bf16)."""
+    b, h = 2, 2
+    (tq_, tk_, tv_), (jq_, jk_, jv_) = _qkv(s + hd + tq, (b * h, s, hd),
+                                            dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    want = np.asarray(flash_attention_pallas(jq_, jk_, jv_, causal=causal,
+                                             tq=tq, tk=tk).astype(jnp.float32))
+    got = tflash.plain_flash_attention(tq_, tk_, tv_, causal, tk=tk)
+    assert got.dtype == tq_.dtype and got.shape == (b * h, s, hd)
+    assert np.max(np.abs(got.float().numpy() - want)) < tol
+
+    def four(a):
+        return a.reshape(b, h, s, hd)
+    want = np.asarray(jkref.flash_attention_ref(
+        four(jq_), four(jk_), four(jv_), causal=causal).astype(jnp.float32))
+    got = tops.flash_attention(four(tq_), four(tk_), four(tv_), causal)
+    assert got.shape == (b, h, s, hd)
+    assert np.max(np.abs(got.float().numpy() - want)) < tol
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_attention_constant_v(seed):
+    """Attention of a constant V is that constant (rows of the softmax sum
+    to one), as ``tests/test_kernels.py`` checks the Pallas kernel."""
+    rng = np.random.default_rng(seed)
+    q = _t(rng.standard_normal((1, 1, 128, 64)).astype(np.float32))
+    k = _t(rng.standard_normal((1, 1, 128, 64)).astype(np.float32))
+    out = tops.flash_attention(q, k, torch.ones(1, 1, 128, 64), causal=True)
+    assert torch.allclose(out, torch.ones_like(out), atol=1e-5)
+
+
+def test_flash_wrapper_contract_on_cpu():
+    """Any S (a ragged last key tile) on the CPU, equal to the einsum
+    oracle; mismatched shapes and other devices raise; no launch."""
+    (q, k, v), (jq_, jk_, jv_) = _qkv(5, (1, 3, 100, 16), "float32")
+    tflash.reset_launches()
+    got = tops.flash_attention(q, k, v, causal=True)
+    want = np.asarray(jkref.flash_attention_ref(jq_, jk_, jv_, causal=True))
+    assert np.max(np.abs(got.numpy() - want)) < 1e-5
+    with pytest.raises(ValueError, match="alike"):
+        tflash.flash_attention(q[0], k[0, :, :50], v[0])
+    with pytest.raises(ValueError, match=r"\[B, H, S, hd\]"):
+        tops.flash_attention(q[0], k[0], v[0])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert tflash.LAUNCHES == {"flash_attention": 0}
+
