@@ -8,7 +8,10 @@ script exits non-zero with no result line:
 
 1. card: ``nvidia-smi`` name and power limit, device name, kernel build
    (one ``nvcc`` for ``sm_90a`` per source, all started together) and
-   its seconds;
+   its seconds; each kernel's registers, spills and shared memory from
+   ``-Xptxas -v``, and the ``HGMMA`` instructions that ``cuobjdump
+   -sass`` finds in each library (the gmm and flash-attention libraries
+   must have some);
 2. host setup: RMAT-22 (numpy), its CSR and the packing onto 64 shards;
 3. kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes and at edge cases, with times, bounds and library
@@ -45,23 +48,33 @@ script exits non-zero with no result line:
    port's ``moe_einsum`` (factor 8, capacity the whole group) within
    1e-4 of max|out|;
 11. the grouped-matmul and flash-attention kernels against their plain
-   versions at edge cases, then ``ops.gmm`` at phase 10's expert buckets
+   versions at edge cases on every design (gmm: wgmma, blocked, simt;
+   flash: wgmma, simt), then ``ops.gmm`` at phase 10's expert buckets
    (the fused packaging's ``xe`` of all shards, w = wg, the real expert
-   of every row tile) and ``ops.flash_attention`` at OLMoE's attention
-   widths (B 2, H 16, S 4096, hd 128, causal, bf16 and float32), each
-   timed beside its bound, its plain version and one PyTorch call
-   (``torch.bmm``, ``scaled_dot_product_attention``).
+   of every row tile) in float32 and in bf16, and ``ops.flash_attention``
+   at OLMoE's attention widths (B 2, H 16, S 4096, hd 128, causal, bf16
+   and float32), each on the design its launch plan names (asserted from
+   the wrappers' ``PATHS``) and timed beside its bound, its plain
+   version and one PyTorch call (``torch.bmm``,
+   ``scaled_dot_product_attention``); the bf16 gmm also on the simt
+   kernel, through an x that starts 2 bytes off a 16-byte boundary. Both
+   C entry points must refuse a launch plan altered in any field.
 
 Each path of phases 4-7, 9, 10 and 11 runs with every kernel's launch
 count set to 0 just before it and read just after; the kernel table
 sums them.
-The line before the last is the JSON kernel table, the last line
-``{"ok": true, "device": {...}}``. It needs a CUDA card and the
-repository around it: without either it exits with code 2.
+The line before the last is the JSON kernel table (the gmm row carries
+its bf16 run under ``bf16_*`` keys, the flash row its float32 run under
+``f32_*``), the last line ``{"ok": true, "device": {...}}``. It needs a
+CUDA card and the repository around it: without either it exits with
+code 2.
 """
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -94,8 +107,11 @@ KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
                                     "reduce_finish_kernel"),
                 "histogram": ("hist_kernel",),
                 "bsr_spmv": ("bsr_spmv_kernel",),
-                "gmm": ("gmm_kernel",),
-                "flash_attention": ("flash_kernel",)}
+                "gmm": ("gmm_kernel", "gmm_blocked_kernel",
+                        "gmm_wgmma_kernel"),
+                "flash_attention": ("flash_kernel", "flash_wgmma_kernel")}
+#: libraries whose kernels must use the tensor cores' wgmma (HGMMA in SASS)
+WGMMA_LIBS = ("gmm", "flash_attention")
 CARD = ("cuda", 0)
 SCALE, SMALL_SCALE = 22, 18        # RMAT scales of the main and small graphs
 HIST_N, HIST_BINS = 1 << 28, 4096
@@ -1232,35 +1248,53 @@ def flash_check(flash_mod, q, k, v, causal):
 
 
 def gmm_flash_edge_cases(device):
-    """gmm at rt 8 / 32 / 64 / 128, D and F off the kernel's tiles, one
-    expert, bf16 and float32, F off ft refused, a group id out of range
-    giving zero rows; flash at one causal tile, non-causal, a ragged S, hd
-    off 16 and 128, bf16 and float32, constant V."""
+    """gmm at rt 8 / 32 / 64 / 128, D and F off the kernels' tiles, one
+    expert, bf16 and float32, on each design (wgmma, blocked, simt, as
+    launch_plan picks it), F off ft refused, a group id out of range
+    giving zero rows on every design; flash at one causal tile,
+    non-causal, a ragged S, hd off 16 and 128, hd 64 / 96 / 128 at S 128
+    / 300 / 1024 in bf16 (wgmma), bf16 with hd off 8 and float32 (simt),
+    constant V; and both C entry points refusing, on every design, a
+    launch plan that differs from their own geometry in any field."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import moe_gmm
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
 
-    def rand(*shape, dtype=torch.float32):
+    def rand(*shape, dtype=f32):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(device, dtype)
+
+    def ran(mod, want):
+        if mod.PATHS[want] != sum(mod.PATHS.values()):
+            raise AssertionError(f"{mod.__name__}: expected the {want} design "
+                                 f"only, ran {mod.PATHS}")
     worst = 0.0
-    cases = [  # (T, D, F, E, rt, ft, dtype)
-        (64, 40, 64, 3, 8, 128, torch.float32),
-        (512, 32, 256, 4, 64, 128, torch.float32),
-        (384, 128, 128, 3, 128, 128, torch.float32),
-        (192, 72, 128, 1, 64, 128, torch.float32),
-        (320, 48, 96, 2, 32, 128, torch.bfloat16),
-        (256, 64, 128, 2, 128, 128, torch.bfloat16),
-        (128, 2048, 192, 5, 64, 64, torch.float32)]
-    for t, d, f, e, rt, ft, dt in cases:
+    cases = [  # (T, D, F, E, rt, ft, dtype, design)
+        (64, 40, 64, 3, 8, 128, f32, "simt"),
+        (512, 32, 256, 4, 64, 128, f32, "blocked"),
+        (384, 128, 128, 3, 128, 128, f32, "blocked"),
+        (192, 72, 128, 1, 64, 128, f32, "blocked"),
+        (192, 36, 90, 2, 64, 90, f32, "simt"),
+        (320, 48, 96, 2, 32, 128, bf16, "simt"),
+        (192, 36, 96, 2, 64, 96, bf16, "simt"),
+        (256, 64, 128, 2, 128, 128, bf16, "wgmma"),
+        (384, 72, 200, 3, 64, 200, bf16, "wgmma"),
+        (512, 200, 136, 2, 128, 136, bf16, "wgmma"),
+        (320, 64, 128, 3, 64, 128, bf16, "wgmma"),
+        (768, 64, 256, 3, 192, 128, bf16, "wgmma"),
+        (128, 2048, 192, 5, 64, 64, f32, "blocked")]
+    for t, d, f, e, rt, ft, dt, design in cases:
         gids = torch.from_numpy(rng.integers(0, e, t // rt).astype(
             np.int32)).to(device)
+        moe_gmm.reset_launches()
         worst = max(worst, gmm_check(moe_gmm, rand(t, d, dtype=dt),
                                      rand(e, d, f, dtype=dt), gids, rt,
                                      ft)[1])
+        ran(moe_gmm, design)
     try:
         moe_gmm.gmm(rand(128, 16), rand(2, 16, 192),
                     torch.zeros(1, dtype=torch.int32, device=device))
@@ -1269,23 +1303,34 @@ def gmm_flash_edge_cases(device):
     else:
         raise AssertionError("gmm took F = 192 with 128-column tiles")
     if device.type == "cuda":          # the plain version raises instead
-        ones = moe_gmm.gmm(torch.ones(128, 16, device=device),
-                           torch.ones(2, 16, 64, device=device),
-                           torch.tensor([7, 1], dtype=torch.int32,
-                                        device=device), rt=64)
-        if not (bool((ones[:64] == 0).all())
-                and bool((ones[64:] == 16).all())):
-            raise AssertionError("gmm: a group id out of range did not give "
-                                 "zero rows")
+        for dt, rt, design in ((f32, 64, "blocked"), (bf16, 64, "wgmma"),
+                               (f32, 32, "simt"), (bf16, 32, "simt")):
+            moe_gmm.reset_launches()
+            ids = torch.tensor([7, 1], dtype=torch.int32, device=device)
+            ones = moe_gmm.gmm(torch.ones(128, 16, device=device, dtype=dt),
+                               torch.ones(2, 16, 64, device=device, dtype=dt),
+                               ids.repeat_interleave(64 // rt), rt=rt)
+            ran(moe_gmm, design)
+            if not (bool((ones[:64] == 0).all())
+                    and bool((ones[64:] == 16).all())):
+                raise AssertionError(f"gmm {design} {dt}: a group id out of "
+                                     f"range did not give zero rows")
+        refused = plans_refused(device)
     worst_f, worst_share = 0.0, 0.0
-    for bh, s, hd, dt, causal in [(4, 64, 128, torch.float32, True),
-                                  (4, 128, 64, torch.float32, False),
-                                  (2, 100, 80, torch.float32, True),
-                                  (4, 256, 128, torch.bfloat16, True),
-                                  (3, 200, 32, torch.bfloat16, False),
-                                  (1, 1, 8, torch.float32, True)]:
+    flash_cases = [  # (BH, S, hd, dtype, causal, design)
+        (4, 64, 128, f32, True, "simt"), (4, 128, 64, f32, False, "simt"),
+        (2, 100, 80, f32, True, "simt"), (1, 1, 8, f32, True, "simt"),
+        (2, 100, 20, bf16, True, "simt"),
+        (4, 256, 128, bf16, True, "wgmma"), (3, 200, 32, bf16, False, "wgmma"),
+        (2, 128, 64, bf16, True, "wgmma"), (2, 300, 96, bf16, True, "wgmma"),
+        (2, 300, 128, bf16, False, "wgmma"),
+        (2, 1024, 128, bf16, False, "wgmma"),
+        (2, 1024, 64, bf16, True, "wgmma"), (1, 1, 8, bf16, True, "wgmma")]
+    for bh, s, hd, dt, causal, design in flash_cases:
         q, k, v = (rand(bh, s, hd, dtype=dt) for _ in range(3))
+        flash.reset_launches()
         _, ratio, share = flash_check(flash, q, k, v, causal)
+        ran(flash, design)
         worst_f, worst_share = max(worst_f, ratio), max(worst_share,
                                                         share or 0.0)
         const = flash.flash_attention(q, k, torch.ones_like(v), causal)
@@ -1294,11 +1339,64 @@ def gmm_flash_edge_cases(device):
                                  "that constant")
     torch.cuda.synchronize()
     log(f"kernels: gmm {len(cases)} edge cases within tolerance of the plain "
-        f"version (worst |err| / tol {worst:.4f}), F off the column tile "
-        f"refused, an out-of-range group id zero rows; flash_attention 6 "
+        f"version on the design each plan names (worst |err| / tol "
+        f"{worst:.4f}), F off the column tile refused, an out-of-range group "
+        f"id zero rows on every design; flash_attention {len(flash_cases)} "
         f"edge cases (worst |err| / tol {worst_f:.4f}; bf16 mean |err| "
         f"{worst_share:.4f} of the p-unrounded plain version's at worst), "
-        f"constant V exact to 1e-5")
+        f"constant V exact to 1e-5"
+        + (f"; {refused} altered launch plans refused by the C launchers"
+           if device.type == "cuda" else ""))
+
+
+def plans_refused(device):
+    """Each design of gmm and flash attention launched through its C entry
+    point with its own launch plan (must succeed) and with each field of
+    that plan altered (must be refused, nothing launched). Returns the
+    count refused."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels._launch import as_c
+    stream = torch.cuda.current_stream(device).cuda_stream
+    refused = 0
+
+    def each(plan, code, launch, what):
+        nonlocal refused
+        if launch(as_c(plan, code)) != 0:
+            raise AssertionError(f"{what}: its own plan {plan} was refused")
+        for i in range(1, 8):  # rows, grid x/y/z, threads, stages, smem
+            c = as_c(plan, code)
+            c[i] += 8 if i in (1, 5, 7) else 1
+            if launch(c) == 0:
+                raise AssertionError(f"{what}: launched a plan with field "
+                                     f"{i} altered from {plan}")
+            refused += 1
+    gids = torch.zeros(8, dtype=torch.int32, device=device)
+    for dt, rt in ((torch.float32, 64), (torch.bfloat16, 64),
+                   (torch.float32, 32), (torch.bfloat16, 32)):
+        x = torch.ones(256, 64, device=device, dtype=dt)
+        w = torch.ones(2, 64, 128, device=device, dtype=dt)
+        out = torch.empty(256, 128, device=device, dtype=dt)
+        plan = moe_gmm.launch_plan(256, 64, 128, rt, dt)
+        each(plan, moe_gmm.PATH_CODES[plan.path],
+             lambda c: library("gmm").dcra_gmm(
+                 x.data_ptr(), w.data_ptr(), gids.data_ptr(), out.data_ptr(),
+                 256, 64, 128, rt, 2, moe_gmm.DTYPES.index(dt), c, stream),
+             f"gmm {plan.path} {dt}")
+    for dt, hd in ((torch.float32, 64), (torch.bfloat16, 64),
+                   (torch.bfloat16, 128)):
+        q = torch.ones(2, 100, hd, device=device, dtype=dt)
+        o = torch.empty_like(q)
+        plan = flash.launch_plan(2, 100, hd, dt)
+        each(plan, flash.PATH_CODES[plan.path],
+             lambda c: library("flash_attention").dcra_flash_attention(
+                 q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 2,
+                 100, hd, hd ** -0.5, 1, flash.DTYPES.index(dt), c, stream),
+             f"flash_attention {plan.path} {dt} hd {hd}")
+    torch.cuda.synchronize()
+    return refused
 
 
 def gmm_operand(stats):
@@ -1318,49 +1416,91 @@ def gmm_operand(stats):
 
 
 def run_gmm(device, totals, stats, params):
-    """``ops.gmm`` at phase 10's expert buckets with w = wg; its row of the
-    kernel table, ``torch.bmm`` over the buckets as the yardstick."""
+    """``ops.gmm`` at phase 10's expert buckets with w = wg, in float32 (the
+    kernel table's row) and bf16 (``bf16_*`` keys), each on the design its
+    launch plan names, against the plain version, timed beside
+    ``torch.bmm`` over the buckets in the same type as the yardstick. In
+    bf16 the simt kernel, which no earlier run timed at this shape, is
+    timed too on a copy of x that starts 2 bytes into its storage (the
+    input that selects it: TMA needs 16-byte aligned bases)."""
     import torch
     from repro_torch.kernels import moe_gmm, ops
-    x, gids, rt, bucket_experts, cap_e = gmm_operand(stats)
-    w = params["wg"]
-    t, d = x.shape
-    e, _, f = w.shape
-    with MainPath("ops.gmm at the MoE expert buckets", ("gmm",),
-                  totals) as path:
-        ops.gmm(x, w, gids, rt=rt)
-    err, ratio = gmm_check(moe_gmm, x, w, gids, rt)
-    wsel = w[bucket_experts.long()]                 # [S * E_local, D, F]
-    xb = x.view(-1, cap_e, d)
-    got = moe_gmm.gmm(x, w, gids, rt=rt)
-    lib = torch.bmm(xb, wsel).view(t, f)
-    tol = moe_gmm.error_bound(x, w, gids, rt, got)
-    lib_ok = bool(((lib - got).abs() <= tol).all())
-    del got, lib
-    n_bytes = 4 * (t * d + e * d * f + t * f) + 4 * gids.numel()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x32, gids, rt, bucket_experts, cap_e = gmm_operand(stats)
+    w32 = params["wg"]
+    t, d = x32.shape
+    e, _, f = w32.shape
     n_flops = 2 * t * d * f
-    out = row("gmm", err, cuda_ms(lambda: ops.gmm(x, w, gids, rt=rt), 5),
-              cuda_ms(lambda: moe_gmm.plain_gmm(x, w, gids, rt), 2), n_bytes,
-              cuda_ms(lambda: torch.bmm(xb, wsel), 5) if lib_ok else None,
-              n_flops)
-    log(f"kernel gmm at the fused packaging's expert buckets: x [{t}, {d}] "
-        f"({stats.expert_rows.shape[0]} shards x {stats.e_local} experts x "
-        f"cap_e {cap_e}), w [{e}, {d}, {f}], rt {rt}: max |err| {err:.3e} vs "
-        f"the plain version ({ratio:.4f} of the tolerance); launches "
-        f"{path.launches}")
-    log_row(out, f"T={t} D={d} F={f} E={e} rt={rt} float32", n_bytes,
-            "torch.bmm over the [S*E_local, cap_e, D] buckets"
-            if lib_ok else "torch.bmm: none (off the kernel's tolerance)")
-    log(f"kernel gmm: {n_flops:.4e} flops / 67 TFLOP/s (float32) = "
-        f"{n_flops / F32_FLOP_PER_S * 1e3:.4f} ms binds it")
-    del wsel
+    out = None
+    for dt, rate, tag in ((torch.float32, F32_FLOP_PER_S, "float32"),
+                          (torch.bfloat16, BF16_FLOP_PER_S, "bf16")):
+        x, w = x32.to(dt), w32.to(dt)
+        design = moe_gmm.launch_plan(t, d, f, rt, dt).path
+        with MainPath(f"ops.gmm {tag} at the MoE expert buckets", ("gmm",),
+                      totals) as path:
+            ops.gmm(x, w, gids, rt=rt)
+        if moe_gmm.PATHS[design] != 1 or design == "simt":
+            raise AssertionError(f"ops.gmm {tag} at the main shape ran "
+                                 f"{moe_gmm.PATHS}, not the redesigned "
+                                 f"kernel")
+        err, ratio = gmm_check(moe_gmm, x, w, gids, rt)
+        wsel = w[bucket_experts.long()]             # [S * E_local, D, F]
+        xb = x.view(-1, cap_e, d)
+        got = moe_gmm.gmm(x, w, gids, rt=rt)
+        lib = torch.bmm(xb, wsel).view(t, f)
+        tol = moe_gmm.error_bound(x, w, gids, rt, got)
+        lib_ok = bool(((lib.float() - got.float()).abs() <= tol).all())
+        del got, lib, tol
+        n_bytes = x.element_size() * (t * d + e * d * f + t * f) \
+            + 4 * gids.numel()
+        r = row("gmm", err, cuda_ms(lambda: ops.gmm(x, w, gids, rt=rt), 5),
+                cuda_ms(lambda: moe_gmm.plain_gmm(x, w, gids, rt), 2),
+                n_bytes,
+                cuda_ms(lambda: torch.bmm(xb, wsel), 5) if lib_ok else None,
+                n_flops, rate)
+        simt_ms = None
+        if tag == "bf16":
+            xu = torch.empty(t * d + 1, dtype=dt, device=device)[1:].view(t, d)
+            xu.copy_(x)
+            moe_gmm.reset_launches()
+            simt_ms = cuda_ms(lambda: moe_gmm.gmm(xu, w, gids, rt=rt), 2)
+            if moe_gmm.PATHS["simt"] != sum(moe_gmm.PATHS.values()):
+                raise AssertionError(f"gmm bf16 on an unaligned x ran "
+                                     f"{moe_gmm.PATHS}, not the simt kernel")
+            del xu
+        log(f"kernel gmm {tag} at the fused packaging's expert buckets: x "
+            f"[{t}, {d}] ({stats.expert_rows.shape[0]} shards x "
+            f"{stats.e_local} experts x cap_e {cap_e}), w [{e}, {d}, {f}], "
+            f"rt {rt}, design {design} "
+            f"{moe_gmm.launch_plan(t, d, f, rt, dt)}: max |err| {err:.3e} vs "
+            f"the plain version ({ratio:.4f} of the tolerance); launches "
+            f"{path.launches}")
+        log_row(r, f"T={t} D={d} F={f} E={e} rt={rt} {tag}", n_bytes,
+                f"torch.bmm over the [S*E_local, cap_e, D] buckets in {tag}"
+                if lib_ok else "torch.bmm: none (off the kernel's tolerance)")
+        log(f"kernel gmm {tag}: "
+            + (f"the simt kernel on an unaligned copy of x {simt_ms:.4f} ms; "
+               if simt_ms is not None else "")
+            + f"{n_flops:.4e} flops / "
+            f"{rate / 1e12:.0f} TFLOP/s = {n_flops / rate * 1e3:.4f} ms, "
+            f"{n_bytes} B / 3.35 TB/s = "
+            f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; achieved "
+            f"{n_flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        del wsel, xb, x, w
+        if out is None:
+            out = r
+        else:
+            out.update({f"bf16_{key}": r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
     return out
 
 
 def run_flash(device, totals):
     """``ops.flash_attention`` at OLMoE's attention widths, causal, in
-    bf16 (the kernel table's row) and float32 (``f32_*`` keys), each
-    against the plain version, timed beside SDPA."""
+    bf16 (the kernel table's row, on wgmma) and float32 (``f32_*`` keys,
+    on the simt kernel), each against the plain version, timed beside
+    SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
@@ -1376,9 +1516,14 @@ def run_flash(device, totals):
     for dt, rate, tag in ((torch.bfloat16, BF16_FLOP_PER_S, "bf16"),
                           (torch.float32, F32_FLOP_PER_S, "float32")):
         q, k, v = (t.to(dt) for t in base)
+        design = flash.launch_plan(b * h, s, hd, dt).path
         with MainPath(f"ops.flash_attention {tag}", ("flash_attention",),
                       totals) as path:
             ops.flash_attention(q, k, v, causal=True)
+        if design != ("wgmma" if tag == "bf16" else "simt") \
+                or flash.PATHS[design] != 1:
+            raise AssertionError(f"ops.flash_attention {tag} at the main "
+                                 f"shape ran {flash.PATHS}")
 
         def three(t):
             return t.reshape(b * h, s, hd)
@@ -1398,14 +1543,16 @@ def run_flash(device, totals):
                 cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), 5) if lib_ok else None,
                 n_flops, rate)
-        log(f"kernel flash_attention {tag} causal B={b} H={h} S={s} hd={hd}: "
+        log(f"kernel flash_attention {tag} causal B={b} H={h} S={s} hd={hd}, "
+            f"design {design} {flash.launch_plan(b * h, s, hd, dt)}: "
             f"max |err| {err:.3e} vs the plain version ({ratio:.4f} of the "
             f"tolerance"
             + (f"; mean |err| {share:.4f} of the p-unrounded plain "
                f"version's" if share is not None else "")
             + f"); launches {path.launches}")
         log_row(r, f"{tag}, {n_flops:.4e} flops over "
-                f"{rate / 1e12:.0f} TFLOP/s", n_bytes,
+                f"{rate / 1e12:.0f} TFLOP/s, achieved "
+                f"{n_flops / r['ms'] / 1e9:.1f} TFLOP/s", n_bytes,
                 "scaled_dot_product_attention(is_causal=True)" if lib_ok
                 else "SDPA: none (off the kernel's tolerance)")
         if out is None:
@@ -1415,6 +1562,78 @@ def run_flash(device, totals):
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
     return out
+
+
+def _demangle(names):
+    """Kernel names without namespace or arguments (``gmm_kernel<float,
+    64>``), or as they are where no demangler is found."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    if len(out) != len(names):
+        return list(names)
+    return [re.sub(r"^(void )?\(anonymous namespace\)::", "", n).split("(")[0]
+            for n in out]
+
+
+def ptxas_report(log_text):
+    """``[(kernel, registers, spill store bytes, spill load bytes, shared
+    bytes)]`` from nvcc's ``-Xptxas -v`` output."""
+    rows, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows[name] = [0, 0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[name][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[name][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rows[name][3] = int(m.group(1)) if m else 0
+    names = list(rows)
+    return [(short, *rows[n]) for short, n in zip(_demangle(names), names)]
+
+
+def kernel_resources(recs):
+    """Print each library's kernels with their registers, spills and
+    static shared memory (``-Xptxas -v``) and its count of ``HGMMA``
+    instructions (``cuobjdump -sass``); fail if a library of
+    :data:`WGMMA_LIBS` has none. Returns ``{library: HGMMA count or
+    None}`` (None without cuobjdump)."""
+    tool = shutil.which("cuobjdump")
+    if tool is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        tool = "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib, rec in recs.items():
+        log_path = Path(rec["log"])
+        text = log_path.read_text() if log_path.exists() else ""
+        for kern, regs, st, ld, smem in ptxas_report(text):
+            log(f"ptxas {lib}: {kern}: {regs} registers, spill stores {st} "
+                f"B, spill loads {ld} B, static smem {smem} B")
+        if tool is None:
+            counts[lib] = None
+            continue
+        sass = subprocess.run([tool, "-sass", str(rec["path"])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[lib] = len(re.findall(r"\bHGMMA\.", sass))
+    log("cuobjdump -sass HGMMA instructions: " + (", ".join(
+        f"{k} {v}" for k, v in counts.items()) if tool else "cuobjdump not "
+        "found, not counted"))
+    missing = [k for k in WGMMA_LIBS if counts.get(k) == 0]
+    if missing:
+        raise AssertionError(f"no HGMMA instruction in {missing}: the wgmma "
+                             f"kernels did not compile to the tensor cores")
+    return counts
 
 
 def phase(name, t0):
@@ -1458,6 +1677,7 @@ def main() -> int:
     log("build (nvcc sm_90a, one process a source, all at once): "
         + ", ".join(f"{Path(r['path']).name} {r['seconds']:.2f} s"
                     for r in recs.values()))
+    hgmma = kernel_resources(recs)
     t0 = phase("1 (card, build)", t0)
 
     # ---- 2: host setup -----------------------------------------------------
@@ -1531,12 +1751,14 @@ def main() -> int:
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:
         rows[k]["launches"] = totals[k]
+    for k in WGMMA_LIBS:
+        rows[k]["hgmma"] = hgmma[k]
     if not all(totals.values()):
         raise AssertionError(f"a kernel was never launched on a main path: "
                              f"{totals}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
+    log(json.dumps({"kernels": list(rows.values())}))
     # the port drives one card (its shards are virtual)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))

@@ -4,8 +4,15 @@ shared library with a plain C interface, bound with ``ctypes``.
 Nothing here runs at import. :func:`library` builds every
 ``csrc/*.cu`` for ``sm_90a`` at first use, all ``nvcc`` processes
 started together, into ``build/kernels/`` at the root of the checkout
-(listed in ``.gitignore``), each named by the hash of its source so an
-edited kernel is rebuilt, and loads each library once per process.
+(listed in ``.gitignore``), each named by the hash of its source and
+of every shared header ``csrc/*.cuh``, so an edited kernel or header is
+rebuilt, and loads each library once per process. ``nvcc`` runs with
+``-Xptxas -v``; its output (each kernel's registers, spills and shared
+memory) is kept beside the library as ``lib<name>_<hash>.log``.
+
+The TMA kernels reach the driver's ``cuTensorMapEncodeTiled`` through
+the runtime's ``cudaGetDriverEntryPoint`` (``csrc/sm90.cuh``), so no
+library is linked beyond the CUDA runtime.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _F32 = ctypes.c_float
@@ -41,16 +48,16 @@ _SIGNATURES = {
     },
     "gmm": {
         "dcra_gmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
-                     _I32, _P),
+                     _P, _P),
     },
     "flash_attention": {
         "dcra_flash_attention": (_P, _P, _P, _P, _I64, _I32, _I32, _F32,
-                                 _I32, _I32, _P),
+                                 _I32, _I32, _P, _P),
     },
 }
 
 _LIBS = {}                # name -> loaded library, filled on first use
-_BUILD = {}               # name -> {"path", "seconds"}, filled by build()
+_BUILD = {}     # name -> {"path", "log", "seconds"}, filled by build()
 
 
 def _nvcc() -> str:
@@ -65,23 +72,28 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of that source
+    and of every ``csrc/*.cuh`` (any of which it may include)."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build() -> dict:
     """Compile every source in :data:`_SIGNATURES` whose library of the
     same source hash is missing, one ``nvcc`` each, all at once. Returns
-    ``{name: {"path", "seconds"}}`` (``seconds`` 0.0 for a library that
-    was already built; otherwise the wall time of the parallel build)."""
+    ``{name: {"path", "log", "seconds"}}``: ``log`` is nvcc's output
+    (``-Xptxas -v``), ``seconds`` 0.0 for a library that was already
+    built, otherwise the wall time of the parallel build."""
     if len(_BUILD) == len(_SIGNATURES):
         return dict(_BUILD)
     todo = {}
     for name in _SIGNATURES:
         out = _target(name)
         if out.exists():
-            _BUILD[name] = {"path": out, "seconds": 0.0}
+            _BUILD[name] = {"path": out, "log": out.with_suffix(".log"),
+                            "seconds": 0.0}
         else:
             todo[name] = out
     if todo:
@@ -100,13 +112,16 @@ def build() -> dict:
         for name, (tmp, log, proc) in procs.items():
             if proc.wait() != 0:
                 errors.append(f"nvcc failed on {name}.cu:\n{log.read_text()}")
-            log.unlink()
+                log.unlink()
         if errors:
             raise RuntimeError("\n".join(errors))
         seconds = time.perf_counter() - t0
-        for name, (tmp, _, _) in procs.items():
-            os.replace(tmp, todo[name])
-            _BUILD[name] = {"path": todo[name], "seconds": seconds}
+        for name, (tmp, log, _) in procs.items():
+            out = todo[name]
+            os.replace(log, out.with_suffix(".log"))
+            os.replace(tmp, out)
+            _BUILD[name] = {"path": out, "log": out.with_suffix(".log"),
+                            "seconds": seconds}
     return dict(_BUILD)
 
 

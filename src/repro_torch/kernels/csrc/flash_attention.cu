@@ -1,6 +1,6 @@
 // DCRA flash attention for Hopper (sm_90a). Plain C interface, loaded with
 // ctypes by repro_torch/kernels/_build.py; launches on the caller's
-// stream, allocates nothing and returns cudaGetLastError().
+// stream, allocates nothing and returns a cudaError_t.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
@@ -10,40 +10,64 @@
 // (_flash_kernel). o = softmax(q k^T * hd^-0.5 [causal mask]) v over
 // q, k, v [BH, S, hd], with the TPU kernel's numerics: f32 logits
 // (bf16 products are exact in f32), the causal mask value -1e30, an
-// online softmax whose running max m, sum l and accumulator stay in f32,
-// p rounded to v's type before the p.v product, l clamped at 1e-30, the
-// output stored in q's type. K/V tiles above the diagonal are not
-// visited, and the tiles are visited in order from the first, so every
-// row's max is finite after the first tile, as in the TPU kernel.
+// online softmax over 64-key tiles whose running max m, sum l and
+// accumulator stay in f32, p rounded to v's type before the p.v product,
+// l clamped at 1e-30, the output stored in q's type. Key tiles above the
+// diagonal are not visited, and the tiles are visited in order from the
+// first, so every row's max is finite after the first tile, as in the TPU
+// kernel. Keys past S (a ragged last tile) get -inf: they are not keys,
+// and add nothing. The TPU kernel's sequential kv grid axis, with m/l/acc
+// carried in VMEM scratch from step to step, becomes a loop inside a
+// block.
 //
-// Design: one thread block of 256 threads per (bh, 64-row q tile). The
-// TPU kernel's sequential kv grid axis, with m/l/acc carried in VMEM
-// scratch from step to step, becomes a loop inside the block. The q
-// tile sits in shared memory (f32, rows padded to hd + 1 floats against
-// bank conflicts) for the whole loop; each step stages one 64-row K tile
-// (padded the same way) and V tile in shared memory, the 16 x 16 threads
-// each compute a 4 x 4 block of logits (rows ty + 16i, columns tx + 16j),
-// reduce each row's max and sum over the 16 lanes that share it with
-// shuffles, write the rounded p to shared memory, and add p.v into a
-// 4 x 8 register block of the [64, hd] accumulator (columns tx + 16c).
-// hd <= 128. Keys past S (a ragged last tile) get -inf: they are not
-// keys, and add nothing. Shared memory at hd = 128 is
-// 2*64*129*4 + 64*128*4 + 64*65*4 = 115,456 B, past the 48 KB default:
-// the launch raises the dynamic shared-memory limit first.
+// Bound: 4*BH*S^2*hd flops without the mask, about half with it: at
+// B = 2, H = 16, S = 4096, hd = 128 causal, 1.4e11 flops, 0.14 ms at the
+// tensor cores' 989 TFLOP/s in bf16 and 2.1 ms at 67 TFLOP/s in f32,
+// against 4*BH*S*hd elements of q, k, v and o (0.27 GB in f32, 0.08 ms
+// at 3.35 TB/s): the operations bind it.
 //
-// Bound: 4*BH*S^2*hd flops without the mask, about half with it (the
-// tiles below and on the diagonal): at B = 2, H = 16, S = 4096, hd = 128
-// causal, 1.4e11 flops, 2.1 ms at 67 TFLOP/s in f32 and 0.14 ms at the
-// tensor cores' 989 TFLOP/s in bf16, against 4*BH*S*hd elements of
-// q, k, v and o (0.27 GB in f32, 0.08 ms at 3.35 TB/s): the operations
-// bind it. This SIMT kernel reaches neither rate, and in bf16 it leaves
-// the tensor cores idle; a wgmma/TMA kernel is the later PR.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Two designs, chosen by the wrapper's launch_plan from the dtype and the
+// shape (never by a failed launch); each launcher refuses a plan whose
+// tile, grid, threads, stages or shared memory differ from its own:
+//  * wgmma (bf16, hd % 8 == 0, 16-byte aligned q, k, v): FlashAttention-
+//    3's structure, kept simple. One block of four warpgroups per
+//    (192-row q tile, bh); bh is blockIdx.x and the q tiles run from the
+//    last (the longest under the causal mask) to the first. The fourth
+//    warpgroup's first thread loads the q tile once and keeps [64 keys,
+//    hd] K and V tiles in flight through a 3-stage ring of shared memory
+//    with TMA and full / empty mbarriers, over a 3D tensor map on [BH,
+//    S, hd], so rows past S (and columns past hd, up to the padded width
+//    HDP of 64 or 128) arrive as zeros rather than the next head's rows.
+//    Each of the three consumer warpgroups owns 64 q rows: S = q k^T is
+//    an SS m64n64k16 wgmma (both K-major) into f32 registers; mask and
+//    online softmax run on that fragment, a row's four lanes combining by
+//    shuffles, each exponent one FMA and one ex2; p, rounded to bf16, is
+//    already in the A-operand register layout, and o += p v is an RS
+//    m64nHDPk16 wgmma (v MN-major, the transpose bit). A key tile wholly
+//    above a warpgroup's rows, or any tile of a warpgroup whose rows all
+//    lie past S, is only released (the mask would leave m, l and o
+//    unchanged exactly). setmaxnreg gives the consumers 160 registers and
+//    the producer 24. Three consumer warpgroups, because with fewer each
+//    SM scheduler holds too few consumer warps to hide the softmax's
+//    dependent instructions, and the tensor cores wait for them.
+//  * simt (f32, or bf16 with hd % 8 != 0): one block of 256 threads per
+//    (bh, 64-row q tile). The q tile sits in shared memory (f32, rows
+//    padded to hd + 1 floats against bank conflicts) for the whole loop;
+//    each step stages one 64-row K tile (padded the same way) and V tile
+//    in shared memory, the 16 x 16 threads each compute a 4 x 4 block of
+//    logits (rows ty + 16i, columns tx + 16j), reduce each row's max and
+//    sum over the 16 lanes that share it with shuffles, write the rounded
+//    p to shared memory, and add p.v into a 4 x 8 register block of the
+//    [64, hd] accumulator (columns tx + 16c). hd <= 128. Shared memory at
+//    hd = 128 is 2*64*129*4 + 64*128*4 + 64*65*4 = 115,456 B. It reaches
+//    neither the f32 rate nor, in bf16, the tensor cores.
+#include "sm90.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// simt: f32 or bf16, any hd <= 128
+// ---------------------------------------------------------------------------
 constexpr int kTile = 64;      // q rows and k rows a tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kMaxHd = 128;
@@ -192,17 +216,292 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma: bf16, hd padded to HDP = 64 or 128
+// ---------------------------------------------------------------------------
+constexpr int kWGroups = 3;      // consumer warpgroups, 64 q rows each
+constexpr int kWq = 64 * kWGroups;                 // q rows a block
+constexpr int kWStages = 3;                        // K/V ring
+constexpr int kWThreads = 128 * (kWGroups + 1);    // + the producer
+constexpr int kBox = sm90::kBoxBytes;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HDP>
+struct WgmmaTile {
+  static constexpr int kBoxes = HDP / 64;           // boxes a 64-row tile
+  static constexpr int kQBytes = kWGroups * kBoxes * kBox;
+  static constexpr int kKvBytes = kBoxes * kBox;    // one K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;
+  // q, the ring, 1 + 2 a stage mbarriers, slack to align to 1024 bytes
+  static constexpr int kSmem = kQBytes + kWStages * kStageBytes +
+                               (1 + 2 * kWStages) * 8 + sm90::kAtomBytes;
+};
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; -inf gives 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = q k^T for one key tile: HDP / 16 SS wgmmas, committed as one group
+template <int HDP>
+__device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* q,
+                                         const uint8_t* kt) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const int off = (kk / 4) * kBox + (kk % 4) * 32;
+    sm90::wgmma_m64n64k16_ss<0>(
+        sc, sm90::desc_sw128(q + off, 0, sm90::kAtomBytes),
+        sm90::desc_sw128(kt + off, 0, sm90::kAtomBytes), kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// o += p v for one key tile: 4 RS wgmmas (v MN-major), one group
+template <int HDP>
+__device__ __forceinline__ void issue_pv(float (&acc)[HDP / 2],
+                                         uint32_t (&p)[4][4],
+                                         const uint8_t* vt) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dv = sm90::desc_sw128(vt + 16 * sm90::kSwizzleBytes * kk,
+                                         kBox, sm90::kAtomBytes);
+    if constexpr (HDP == 128)
+      sm90::wgmma_m64n128k16_rs<1>(acc, p[kk], dv, 1);
+    else
+      sm90::wgmma_m64n64k16_rs<1>(acc, p[kk], dv, 1);
+  }
+  sm90::wgmma_commit();
+}
+
+// The online softmax of one key tile for this thread's rows qi0 and qi1 =
+// qi0 + 8 (i & 2 picks the row of fragment element i). The running max m
+// is kept on the scaled logits x = s hd^-0.5, as the reference keeps it;
+// since rounding is monotone, the max of the rounded x is the rounded
+// scale times the max of s, so the max is taken on s and each exponent is
+// one FMA, 2^(s (scale log2 e) - m log2 e). p, rounded to bf16, lands in
+// the A-operand layout (pairs of neighbouring columns); l sums this lane's
+// unrounded p. Returns the factors by which o must be rescaled.
+struct Softmax {
+  float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.0f, l1 = 0.0f;
+
+  __device__ __forceinline__ void step(float (&sc)[32], uint32_t (&p)[4][4],
+                                       float& alpha0, float& alpha1, int k0,
+                                       bool edge, int qi0, int col,
+                                       int s_len, int causal, float scale) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (edge) {
+      const float masked = kMaskValue / scale;  // scales back to -1e30
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kj = k0 + 8 * (i / 4) + col + (i & 1);
+        const int qi = qi0 + ((i & 2) ? 8 : 0);
+        if (kj >= s_len) sc[i] = -INFINITY;     // not a key
+        else if (causal && kj > qi) sc[i] = masked;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+      else mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {    // the row's four lanes
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale), mn1 = fmaxf(m1, mx1 * scale);
+    const float c0 = mn0 * kLog2e, c1 = mn1 * kLog2e;
+    alpha0 = ex2(fmaf(m0, kLog2e, -c0));
+    alpha1 = ex2(fmaf(m1, kLog2e, -c1));
+    m0 = mn0;
+    m1 = mn1;
+    const float sl2 = scale * kLog2e;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float c = (i & 2) ? c1 : c0;
+      const float pa = ex2(fmaf(sc[i], sl2, -c));
+      const float pb = ex2(fmaf(sc[i + 1], sl2, -c));
+      if (i & 2) sum1 += pa + pb;
+      else sum0 += pa + pb;
+      p[i / 8][(i % 8) / 2] = sm90::pack_bf16(pa, pb);
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+  }
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ o, int s_len, int hd,
+                       float scale, int causal) {
+  using Tile = WgmmaTile<HDP>;
+  constexpr int kN = HDP / 2;                       // o floats a thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((sm90::kAtomBytes -
+                               (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* q_tile = smem;
+  uint8_t* k_tiles = smem + Tile::kQBytes;                    // [stage]
+  uint8_t* v_tiles = k_tiles + kWStages * Tile::kKvBytes;     // [stage]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      smem + Tile::kQBytes + kWStages * Tile::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWStages;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWq;   // longest tiles first
+  const int n_tiles = (s_len + 63) / 64;
+  // causal: visit key tile j while its first key <= the q tile's last row
+  const int n_visit = causal ? min(n_tiles, (q0 + kWq - 1) / 64 + 1)
+                             : n_tiles;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWGroups);   // one arrive a consumer group
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kWGroups) {
+    // ---- producer: one thread issues every TMA load ----
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * kWGroups) {
+      sm90::mbar_expect_tx(q_full, Tile::kQBytes);
+      for (int h = 0; h < kWGroups; ++h)
+        for (int c = 0; c < Tile::kBoxes; ++c)
+          sm90::tma_load_3d(q_tile + (h * Tile::kBoxes + c) * kBox, &qmap,
+                            q_full, 64 * c, q0 + 64 * h, bh);
+      for (int j = 0; j < n_visit; ++j) {
+        const int s = j % kWStages;
+        sm90::mbar_wait(&empty[s], ((j / kWStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[s], Tile::kStageBytes);
+        for (int c = 0; c < Tile::kBoxes; ++c) {
+          sm90::tma_load_3d(k_tiles + s * Tile::kKvBytes + c * kBox, &kmap,
+                            &full[s], 64 * c, 64 * j, bh);
+          sm90::tma_load_3d(v_tiles + s * Tile::kKvBytes + c * kBox, &vmap,
+                            &full[s], 64 * c, 64 * j, bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ----
+    sm90::setmaxnreg_inc<160>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const bool leader = threadIdx.x % 128 == 0;
+    const int row_first = q0 + 64 * wg;
+    // this thread's two rows of every fragment, and its first column
+    const int qi0 = row_first + 16 * warp + lane / 4;
+    const int col = 2 * (lane % 4);
+    const uint8_t* q = q_tile + wg * Tile::kBoxes * kBox;
+    // the tiles this warpgroup computes: none past S, and none wholly above
+    // its rows; the others it only releases
+    const int n_mine = row_first >= s_len ? 0
+                       : causal ? min(n_visit, (row_first + 63) / 64 + 1)
+                                : n_visit;
+    float acc[kN], sc[32], alpha0, alpha1;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    uint32_t p[4][4];
+    Softmax sm;
+    sm90::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_visit; ++j) {
+      const int s = j % kWStages, k0 = 64 * j;
+      sm90::mbar_wait(&full[s], (j / kWStages) & 1);
+      if (j < n_mine) {
+        issue_qk<HDP>(sc, q, k_tiles + s * Tile::kKvBytes);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        sm.step(sc, p, alpha0, alpha1, k0,
+                (causal && k0 + 63 > row_first) || k0 + 64 > s_len, qi0, col,
+                s_len, causal, scale);
+#pragma unroll
+        for (int i = 0; i < kN; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+        issue_pv<HDP>(acc, p, v_tiles + s * Tile::kKvBytes);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(p[kk]);
+      }
+      // released only after its full phase, so the arrive counts for it
+      if (leader) sm90::mbar_arrive(&empty[s]);
+    }
+    float l0 = sm.l0, l1 = sm.l1;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+    const int qi1 = qi0 + 8;
+    __nv_bfloat16* ob = o + (int64_t)bh * s_len * hd;
+#pragma unroll
+    for (int jj = 0; jj < kN / 4; ++jj) {
+      const int c = 8 * jj + col;
+      if (c < hd) {
+        if (qi0 < s_len)
+          *reinterpret_cast<uint32_t*>(ob + (int64_t)qi0 * hd + c) =
+              sm90::pack_bf16(acc[4 * jj] * inv0, acc[4 * jj + 1] * inv0);
+        if (qi1 < s_len)
+          *reinterpret_cast<uint32_t*>(ob + (int64_t)qi1 * hd + c) =
+              sm90::pack_bf16(acc[4 * jj + 2] * inv1, acc[4 * jj + 3] * inv1);
+      }
+    }
+  }
+}
+
+template <int HDP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int64_t bh, int s_len, int hd, float scale, int causal,
+                 const sm90::LaunchPlan& plan, cudaStream_t stream) {
+  constexpr int smem = WgmmaTile<HDP>::kSmem;
+  const dim3 grid((unsigned)bh, (unsigned)((s_len + kWq - 1) / kWq));
+  if (!sm90::plan_is(plan, kWq, grid, kWThreads, kWStages, smem))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)s_len,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)s_len * hd * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int err = sm90::bf16_map(&maps[i], bases[i], 3, dims, strides, box);
+    if (err) return err;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_wgmma_kernel<HDP><<<grid, kWThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), s_len, hd,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
-           int s_len, int hd, float scale, int causal, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                int64_t bh, int s_len, int hd, float scale, int causal,
+                const sm90::LaunchPlan& plan, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
+  const dim3 grid((unsigned)((s_len + kTile - 1) / kTile), (unsigned)bh);
+  if (!sm90::plan_is(plan, kTile, grid, kThreads, 1, smem))
+    return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned)((s_len + kTile - 1) / kTile), (unsigned)bh);
   flash_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s_len, hd, scale, causal);
@@ -214,18 +513,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
 extern "C" {
 
 // q, k, v, o: [bh, s_len, hd], contiguous; dtype 0 = float32, 1 =
-// bfloat16 (all four alike); 1 <= hd <= 128; bh <= 65535.
+// bfloat16 (all four alike); 1 <= hd <= 128; bh <= 65535. plan: the
+// wrapper's launch plan, its path 0 = simt, 1 = wgmma (bf16, hd % 8 ==
+// 0); launched only as planned.
 int dcra_flash_attention(const void* q, const void* k, const void* v,
                          void* o, int64_t bh, int32_t s_len, int32_t hd,
                          float scale, int32_t causal, int32_t dtype,
-                         cudaStream_t stream) {
+                         const sm90::LaunchPlan* plan, cudaStream_t stream) {
   if (bh <= 0 || s_len <= 0) return (int)cudaGetLastError();
-  if (hd < 1 || hd > kMaxHd || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (plan == nullptr || hd < 1 || hd > kMaxHd || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (plan->path == 1) {
+    if (dtype != 1 || hd % 8) return (int)cudaErrorInvalidValue;
+    return hd <= 64 ? launch_wgmma<64>(q, k, v, o, bh, s_len, hd, scale,
+                                       causal, *plan, stream)
+                    : launch_wgmma<128>(q, k, v, o, bh, s_len, hd, scale,
+                                        causal, *plan, stream);
+  }
+  if (plan->path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, o, bh, s_len, hd, scale, causal, stream);
+    return launch_simt<float>(q, k, v, o, bh, s_len, hd, scale, causal,
+                              *plan, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, bh, s_len, hd, scale, causal,
-                                 stream);
+    return launch_simt<__nv_bfloat16>(q, k, v, o, bh, s_len, hd, scale,
+                                      causal, *plan, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,11 +6,13 @@ hd]``, as an online softmax over key tiles: float32 logits and m / l /
 acc, ``p`` rounded to v's type before ``p @ v``, ``l`` clamped at 1e-30,
 the output in q's type.
 
-On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
-(``csrc/flash_attention.cu``, 64-row q and key tiles) and adds one to
-``LAUNCHES["flash_attention"]``; on a CPU tensor it runs
-:func:`plain_flash_attention` with the same key tile. Any other device
-raises.
+On a CUDA tensor :func:`flash_attention` launches a hand-written kernel
+of ``csrc/flash_attention.cu``, chosen by :func:`launch_plan` (bf16 on
+wgmma with 192-row q tiles, float32 on the simt kernel with 64-row q
+tiles; both on 64-key tiles), and adds one to
+``LAUNCHES["flash_attention"]`` and to its design's entry of ``PATHS``;
+on a CPU tensor it runs :func:`plain_flash_attention` with the same key
+tile. Any other device raises.
 """
 from __future__ import annotations
 
@@ -18,19 +20,63 @@ import math
 
 import torch
 
+from ._launch import LaunchPlan, aligned as _aligned, as_c
 from .route import _check, _on_cuda, _raise_on, _stream, gamma
 
-TILE = 64              # the kernel's q and key tile
+TILE = 64              # the kernels' key tile (and the simt kernel's q tile)
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
+WGMMA_GROUPS = 3       # consumer warpgroups of 64 q rows
+WGMMA_STAGES = 3       # K/V ring
+#: the designs of ``csrc/flash_attention.cu``, as the C entry point numbers
+#: them
+PATH_CODES = {"simt": 0, "wgmma": 1}
 
-#: kernel launches since the last reset (chip_smoke reads this)
+#: kernel launches since the last reset, in all and by design (chip_smoke
+#: reads these)
 LAUNCHES = {"flash_attention": 0}
+PATHS = {path: 0 for path in PATH_CODES}
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+    for path in PATHS:
+        PATHS[path] = 0
+
+
+def launch_plan(bh: int, s: int, hd: int, dtype: torch.dtype,
+                aligned: bool = True) -> LaunchPlan:
+    """The design and launch of ``flash_attention`` on ``[bh, s, hd]``, by
+    type and shape:
+
+    * ``wgmma`` for bf16 with ``hd % 8 == 0`` (a TMA row stride is a
+      multiple of 16 bytes) and 16-byte aligned bases: 192 q rows (three
+      consumer warpgroups) and :data:`TILE` keys a step, hd padded to 64
+      or 128, a 3-stage K/V ring, a producer warpgroup, grid (bh, q
+      tiles);
+    * ``simt`` otherwise (float32, bf16 with hd off 8, or unaligned
+      bases): 64 q rows and :data:`TILE` keys, 256 threads, grid (q tiles,
+      bh).
+
+    ``aligned`` says whether q, k and v start on 16-byte boundaries.
+    ``tiles`` is (q rows, keys, head width) of a step.
+    ``csrc/flash_attention.cu`` launches this plan as it is and refuses
+    one that differs from its own geometry."""
+    if dtype not in DTYPES:
+        raise TypeError(f"q: expected one of {DTYPES}, got {dtype}")
+    if dtype == torch.bfloat16 and hd % 8 == 0 and aligned:
+        hdp = 64 if hd <= 64 else 128
+        tile = 64 * hdp * 2                    # 64 rows of hdp bf16
+        smem = (WGMMA_GROUPS * tile + WGMMA_STAGES * 2 * tile
+                + (1 + 2 * WGMMA_STAGES) * 8 + 1024)
+        q_rows = 64 * WGMMA_GROUPS
+        return LaunchPlan("wgmma", (q_rows, TILE, hdp),
+                          (bh, -(-s // q_rows), 1), 128 * (WGMMA_GROUPS + 1),
+                          WGMMA_STAGES, smem)
+    smem = 4 * (2 * TILE * (hd + 1) + TILE * hd + TILE * (TILE + 1))
+    return LaunchPlan("simt", (TILE, TILE, hd), (-(-s // TILE), bh, 1), 256,
+                      1, smem)
 
 
 def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,7 +161,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """``q, k, v [BH, S, hd]`` -> ``[BH, S, hd]`` in q's type. On the
     card: float32 or bfloat16 alike, contiguous, ``hd <= 128``, ``BH <=
-    65535``; any S (a ragged last tile is masked)."""
+    65535``; any S (a ragged last tile is masked). The design follows
+    :func:`launch_plan`: bf16 with ``hd % 8 == 0`` runs on wgmma, float32,
+    bf16 with other widths and unaligned bases on the simt kernel."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"need q, k, v [BH, S, hd] alike, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -131,13 +179,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= hd <= MAX_HEAD_DIM or bh > 65535:
         raise ValueError(f"the kernel takes 1 <= hd <= {MAX_HEAD_DIM} and "
                          f"BH <= 65535, got hd={hd}, BH={bh}")
+    plan = launch_plan(bh, s, hd, q.dtype, _aligned(q, k, v))
     o = torch.empty_like(q)
     if bh == 0 or s == 0:
         return o
     from ._build import library
     _raise_on(library("flash_attention").dcra_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, hd,
-        hd ** -0.5, int(causal), DTYPES.index(q.dtype), _stream(dev)),
-        "flash_attention")
+        hd ** -0.5, int(causal), DTYPES.index(q.dtype),
+        as_c(plan, PATH_CODES[plan.path]), _stream(dev)), "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    PATHS[plan.path] += 1
     return o

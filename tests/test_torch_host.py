@@ -90,6 +90,67 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+def test_build_target_follows_the_source_and_every_header(tmp_path,
+                                                         monkeypatch):
+    """A library is named by the hash of its source and of every shared
+    header in ``csrc/``: an edit to either names a new library, so a
+    stale one is never loaded; an edit elsewhere does not."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (csrc / "gmm.cu").write_text('#include "sm90.cuh"\n')
+    (csrc / "sm90.cuh").write_text("// helpers\n")
+    (csrc / "notes.txt").write_text("a\n")
+    first = _build._target("gmm")
+    assert first.parent == tmp_path / "build"
+    assert first.name.startswith("libgmm_") and first.suffix == ".so"
+    assert _build._target("gmm") == first             # stable
+    (csrc / "notes.txt").write_text("b\n")
+    assert _build._target("gmm") == first
+    (csrc / "sm90.cuh").write_text("// helpers, edited\n")
+    second = _build._target("gmm")
+    assert second != first
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    third = _build._target("gmm")
+    assert third not in (first, second)
+    (csrc / "gmm.cu").write_text('#include "sm90.cuh"\n// edited\n')
+    assert _build._target("gmm") not in (first, second, third)
+
+
+def test_build_keeps_ptxas_verbose_output():
+    from repro_torch.kernels import _build
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "-Xptxas -v" in flags and "arch=compute_90a,code=sm_90a" in flags
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z10blocked_kv' for 'sm_90a'
+ptxas info    : Function properties for _Z10blocked_kv
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 40960 bytes smem
+ptxas info    : Compiling entry function '_Z8wgmma_kv' for 'sm_90a'
+ptxas info    : Function properties for _Z8wgmma_kv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reads_ptxas_output():
+    """``chip_smoke.ptxas_report`` takes registers, spills and static
+    shared memory of every kernel from nvcc's ``-Xptxas -v`` output."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    rows = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert [r[1:] for r in rows] == [(128, 4, 12, 40960), (168, 0, 0, 0)]
+    assert len(rows) == 2 and all(r[0] for r in rows)
+
+
 def test_entry_point_raises_without_cuda(monkeypatch):
     from repro_torch.sparse.torch_apps import dcra_bfs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -7,10 +7,15 @@ runs on a machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 
 The ``cuda`` tests skip without a card: the kernels have no CPU mode.
-The others check the wrappers' device rule on the CPU: a CPU tensor
+The others check the wrappers' device rule on the CPU (a CPU tensor
 takes the plain version and launches nothing, any device other than
-CUDA or CPU raises.
+CUDA or CPU raises), the error bounds the card tests use, and the launch
+plans by which the gmm and flash-attention wrappers pick a kernel design
+and launch it.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -243,6 +248,7 @@ def test_gmm_and_flash_take_the_plain_version_on_cpu():
                        tflash.plain_flash_attention(q, q, q))
     assert tgmm.LAUNCHES == {"gmm": 0}
     assert tflash.LAUNCHES == {"flash_attention": 0}
+    assert not any(tgmm.PATHS.values()) and not any(tflash.PATHS.values())
     with pytest.raises(ValueError, match="cuda or cpu"):
         tgmm.gmm(x.to("meta"), w.to("meta"), gids.to("meta"), rt=32)
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -337,8 +343,113 @@ def test_flash_error_bound_rejects_wrong_kernels(dtype, fault):
     assert held != is_fault
 
 
+# ---------------------------------------------------------------------------
+# launch plans (pure Python: checked here, used by every launch on the card)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448      # shared memory one block may take on an H100
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s", [1, 100, 4096])
+@pytest.mark.parametrize("hd", list(range(8, 129, 8)))
+def test_flash_launch_plan(hd, s, dtype):
+    """bf16 at every hd that is a multiple of 8 takes wgmma, float32 and
+    unaligned bases the simt kernel; the key tile is TILE (the plain
+    version's), one grid axis is BH and the other's q tiles cover S once,
+    and the block fits the card's shared memory. (The C launchers refuse
+    a plan that differs from the geometry they launch:
+    ``test_cuda_kernels_refuse_a_plan_they_do_not_launch``.)"""
+    dt = getattr(torch, dtype)
+    plan = tflash.launch_plan(6, s, hd, dt)
+    assert plan.path == ("wgmma" if dtype == "bfloat16" else "simt")
+    for p in (plan, tflash.launch_plan(6, s, hd, dt, aligned=False)):
+        q_rows, keys, width = p.tiles
+        assert keys == tflash.TILE
+        assert p.smem_bytes <= SMEM_LIMIT and p.stages >= 1
+        heads, q_tiles = p.grid[:2] if p.path == "wgmma" else p.grid[1::-1]
+        assert heads == 6 and p.grid[2] == 1
+        assert (q_tiles - 1) * q_rows < s <= q_tiles * q_rows
+        if p.path == "wgmma":      # 64-row consumer warpgroups + a producer
+            assert q_rows % 64 == 0 and p.threads == 128 * (q_rows // 64 + 1)
+            assert width in (64, 128) and hd <= width < hd + 64
+        else:
+            assert (q_rows, width) == (tflash.TILE, hd)
+    assert p.path == "simt"
+
+
+@pytest.mark.parametrize("hd", [1, 20, 36, 100, 127])
+def test_flash_launch_plan_off_the_tma_widths(hd):
+    """bf16 with hd off a multiple of 8 (a TMA row stride must be a
+    multiple of 16 bytes), or at an unaligned address, stays on the simt
+    kernel, as float32 does at any width."""
+    bf16 = torch.bfloat16
+    assert tflash.launch_plan(2, 300, hd, bf16).path == "simt"
+    assert tflash.launch_plan(2, 300, hd, bf16, aligned=False).path == "simt"
+    assert tflash.launch_plan(2, 300, 64, bf16, aligned=False).path == "simt"
+    assert tflash.launch_plan(2, 300, hd, torch.float32).path == "simt"
+    with pytest.raises(TypeError):
+        tflash.launch_plan(2, 300, 64, torch.float16)
+
+
+GMM_PLAN_DF = [(2048, 1024), (72, 200), (64, 64), (36, 96), (48, 90),
+               (2050, 1030)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d,f", GMM_PLAN_DF)
+@pytest.mark.parametrize("rt", [8, 32, 64, 128])
+def test_gmm_launch_plan(rt, d, f, dtype):
+    """bf16 takes wgmma where rt % 64 == 0 and D, F are multiples of 8,
+    float32 the register-blocked GEMM where rt % 64 == 0 and D, F are
+    multiples of 4, and everything else the simt kernel; the rows a pass
+    reads with one expert's weights never exceed rt (the simt and blocked
+    tiles divide rt; the wgmma block's 128 rows are two 64-row halves, and
+    rt is a multiple of 64), its tiles cover the output, and it fits the
+    card's shared memory; at unaligned bases the same holds on the simt
+    kernel."""
+    dt = getattr(torch, dtype)
+    t = 4 * max(rt, 128)
+    plan = tgmm.launch_plan(t, d, f, rt, dt)
+    if rt % 64 == 0 and dtype == "bfloat16" and d % 8 == 0 and f % 8 == 0:
+        assert plan.path == "wgmma"
+    elif rt % 64 == 0 and dtype == "float32" and d % 4 == 0 and f % 4 == 0:
+        assert plan.path == "blocked"
+    else:
+        assert plan.path == "simt"
+    unaligned = tgmm.launch_plan(t, d, f, rt, dt, aligned=False)
+    assert unaligned.path == "simt"
+    for p in (plan, unaligned):
+        bm, bn, _ = p.tiles
+        pass_rows = 64 if p.path == "wgmma" else bm
+        assert pass_rows <= rt and rt % pass_rows == 0
+        assert p.smem_bytes <= SMEM_LIMIT
+        assert p.stages >= 1 and p.threads % 32 == 0
+        blocks = p.grid[0] * p.grid[1] * p.grid[2]
+        assert blocks == -(-t // bm) * -(-f // bn)
+
+
+def test_gmm_launch_plan_refuses():
+    """Inputs select the simt kernel (unaligned bases, rt off 64) and never
+    a design of the other type; rt off 8 and other types raise."""
+    bf16 = torch.bfloat16
+    assert tgmm.launch_plan(256, 64, 128, 64, bf16, aligned=False).path == \
+        "simt"
+    assert tgmm.launch_plan(256, 64, 128, 32, bf16).path == "simt"
+    assert tgmm.launch_plan(256, 64, 128, 64, bf16).path == "wgmma"
+    assert tgmm.launch_plan(256, 64, 128, 64, torch.float32).path == \
+        "blocked"
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tgmm.launch_plan(24, 64, 128, 12, torch.float32)
+    with pytest.raises(TypeError):
+        tgmm.launch_plan(256, 64, 128, 64, torch.float64)
+
+
 # (T, D, F, E, rt, ft, dtype): the CPU tier's shapes, rt = 8 / 32 / 64,
-# D off the 16-deep step, F off the 64-column tile, one expert, bf16
+# D off the 16-deep step, F off the 64-column tile, one expert, bf16; then
+# the wgmma design at rt 64 and 128 with D and F off 64, the blocked one
+# with F off its 256 columns, each type's simt fallback at rt 64, and
+# wgmma with an odd count of 64-row halves (T = 320) and with 128-row
+# blocks straddling row tiles (rt = 192)
 GMM_CUDA_CASES = [
     (256, 64, 128, 2, 128, 128, "float32"), (512, 32, 256, 4, 128, 128,
                                              "float32"),
@@ -347,7 +458,15 @@ GMM_CUDA_CASES = [
     (192, 72, 128, 1, 64, 128, "float32"), (320, 48, 96, 2, 32, 128,
                                             "bfloat16"),
     (256, 64, 128, 2, 128, 128, "bfloat16"), (128, 2048, 192, 5, 64, 64,
-                                              "float32")]
+                                              "float32"),
+    (384, 72, 200, 3, 64, 200, "bfloat16"), (512, 200, 136, 2, 128, 136,
+                                             "bfloat16"),
+    (256, 1000, 1048, 4, 64, 1048, "bfloat16"), (384, 72, 200, 3, 64, 200,
+                                                 "float32"),
+    (192, 36, 96, 2, 64, 96, "bfloat16"), (192, 36, 90, 2, 64, 90,
+                                           "float32"),
+    (320, 64, 128, 3, 64, 128, "bfloat16"), (768, 64, 256, 3, 192, 128,
+                                             "bfloat16")]
 
 
 @pytest.mark.cuda
@@ -368,6 +487,8 @@ def test_cuda_gmm_matches_plain(cuda_device, case):
     got = tgmm.gmm(x, w, gids, rt=rt, ft=ft)
     torch.cuda.synchronize()
     assert tgmm.LAUNCHES["gmm"] == 1
+    design = tgmm.launch_plan(t, d, f, min(rt, t), dt).path
+    assert tgmm.PATHS[design] == 1 == sum(tgmm.PATHS.values())
     assert got.dtype == dt and got.shape == (t, f)
     tol = tgmm.error_bound(x, w, gids, rt, want)
     assert bool(((got.float() - want.float()).abs() <= tol).all())
@@ -388,21 +509,36 @@ def test_cuda_gmm_checks_its_inputs(cuda_device):
         tgmm.gmm(x.double(), w.double(), gids, ft=64)
     with pytest.raises(ValueError, match="expected a tensor on"):
         tgmm.gmm(x, w, gids.cpu(), ft=64)
-    # a group id outside [0, E) gives zero rows, never an out-of-bounds read
-    out = tgmm.gmm(x + 1, w, torch.tensor([5, 0], dtype=torch.int32,
-                                          device=cuda_device), rt=64, ft=64)
-    torch.cuda.synchronize()
-    assert bool((out[:64] == 0).all()) and bool((out[64:] == 16).all())
+    # a group id outside [0, E) gives zero rows, never an out-of-bounds
+    # read, on every design (rt 32 selects the simt kernel)
+    for dt, rt, path in ((torch.float32, 64, "blocked"),
+                         (torch.float32, 32, "simt"),
+                         (torch.bfloat16, 64, "wgmma"),
+                         (torch.bfloat16, 32, "simt")):
+        tgmm.reset_launches()
+        out = tgmm.gmm((x + 1).to(dt), w.to(dt),
+                       torch.tensor([5] * (64 // rt) + [0] * (64 // rt),
+                                    dtype=torch.int32, device=cuda_device),
+                       rt=rt, ft=64)
+        torch.cuda.synchronize()
+        assert tgmm.PATHS[path] == 1
+        assert bool((out[:64] == 0).all()) and bool((out[64:] == 16).all())
 
 
-# (BH, S, hd, dtype, causal): one causal tile, ragged S, hd off 16, hd 128
+# (BH, S, hd, dtype, causal): one causal tile, ragged S, hd off 16, hd 128;
+# then bf16 on wgmma at hd 64 / 96 / 128 and S 128 / 300 / 1024, causal
+# and not, and bf16 with hd off 8 (simt)
 FLASH_CUDA_CASES = [(4, 128, 64, "float32", True), (4, 128, 64, "float32",
                                                     False),
                     (4, 64, 128, "float32", True), (2, 100, 80, "float32",
                                                     True),
                     (4, 256, 128, "bfloat16", True), (4, 256, 128, "bfloat16",
                                                       False),
-                    (1, 1, 8, "float32", True), (3, 200, 32, "bfloat16", False)]
+                    (1, 1, 8, "float32", True), (3, 200, 32, "bfloat16", False)
+                    ] + [(2, s, hd, "bfloat16", causal) for hd in (64, 96, 128)
+                         for s in (128, 300, 1024) for causal in (True, False)
+                         ] + [(2, 100, 20, "bfloat16", True),
+                              (1, 1, 8, "bfloat16", True)]
 
 
 @pytest.mark.cuda
@@ -418,10 +554,14 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     got = tflash.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert tflash.LAUNCHES["flash_attention"] == 1
+    design = tflash.launch_plan(bh, s, hd, q.dtype).path
+    assert tflash.PATHS[design] == 1 == sum(tflash.PATHS.values())
+    assert design == ("wgmma" if dtype == "bfloat16" and hd % 8 == 0
+                      else "simt")
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = tflash.error_bound(q, k, v, causal, want)
     assert bool(((got.float() - want.float()).abs() <= tol).all())
-    if dtype == "bfloat16":      # p rounded where the plain version rounds it
+    if dtype == "bfloat16" and s > 1:  # p rounded as the plain version does
         assert tflash.unrounded_share(q, k, v, causal, got, want) <= 0.1
     ones = tflash.flash_attention(q, k, torch.ones_like(v), causal)
     assert bool(((ones.float() - 1).abs() <= 1e-5).all())
@@ -440,4 +580,30 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
                                q, q)
     with pytest.raises(ValueError, match="expected a tensor on"):
         tflash.flash_attention(q, q.cpu(), q)
+    # a bf16 view that starts 2 bytes into its storage takes the simt
+    # kernel (TMA needs 16-byte aligned bases)
+    buf = torch.randn(2 * 64 * 64 + 1, device=cuda_device).bfloat16()
+    qu = buf[1:].view(2, 64, 64)
+    tflash.reset_launches()
+    got = tflash.flash_attention(qu, qu, qu)
+    torch.cuda.synchronize()
+    assert tflash.PATHS["simt"] == 1
+    want = tflash.plain_flash_attention(qu, qu, qu)
+    assert bool(((got.float() - want.float()).abs()
+                 <= tflash.error_bound(qu, qu, qu, True, want)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_a_plan_they_do_not_launch(cuda_device):
+    """The C launchers compute their own geometry and refuse a launch plan
+    that differs from it in any field, so ``launch_plan`` (checked on the
+    CPU) is what runs on the card: ``chip_smoke.plans_refused`` launches
+    every design of gmm (4) and flash attention (3) with its own plan and
+    with each of the plan's 7 fields altered."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    assert chip_smoke.plans_refused(cuda_device) == 7 * 7
 
