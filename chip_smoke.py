@@ -9,15 +9,19 @@ script exits non-zero with no result line:
 1. card: ``nvidia-smi`` name and power limit, device name, kernel build
    (one ``nvcc`` for ``sm_90a`` per source, all started together) and
    its seconds; each kernel's registers, spills and shared memory from
-   ``-Xptxas -v``, and the ``HGMMA`` instructions that ``cuobjdump
-   -sass`` finds in each library (the gmm and flash-attention libraries
-   must have some);
+   ``-Xptxas -v`` (the register-blocked kernels must not spill), and the
+   ``HGMMA`` instructions that ``cuobjdump -sass`` finds in each library
+   (the gmm and flash-attention libraries must have some); the kernel
+   that SDPA runs in float32 at the flash shape, named by a profiled
+   run;
 2. host setup: RMAT-22 (numpy), its CSR and the packing onto 64 shards;
 3. kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes and at edge cases, with times, bounds and library
    yardsticks: the three route kernels and the histogram kernel; the
-   BSR SpMV kernel at edge cases and at a synthetic shape (its row is
-   timed in phase 9);
+   BSR SpMV kernels at edge cases on both designs (split, rowblock: an
+   out-of-range block column, R = 1, Kb off the slice count, an
+   unaligned x), the split design bit-identical over two runs, and at a
+   synthetic shape (its row is timed in phase 9);
 4. BFS on RMAT-22, flat (64 shards) and pod/portal (8 x 8): equal to the
    numpy oracle, no drops, bit-identical to the plain-torch path
    (``route_impl="sort"``), every kernel launched, TEPS and the
@@ -33,10 +37,11 @@ script exits non-zero with no result line:
    oracle;
 8. SSSP, WCC and k-core on RMAT-18, flat (8) and pod/portal (2 x 4),
    equal to their oracles;
-9. ``spmv_csr`` end to end (the BSR kernel) on an Erdos-Renyi graph of
-   2^14 vertices, against the oracle within the BSR tolerance; then the
-   BSR kernel on the same arrays against its plain version, timed for
-   the kernel table;
+9. ``spmv_csr`` end to end (the BSR kernel, split design, asserted from
+   ``PATHS``) on an Erdos-Renyi graph of 2^14 vertices, against the
+   oracle within the BSR tolerance; then the BSR kernel on the same
+   arrays against its plain version, timed for the kernel table, and
+   the rowblock design on an x 4 bytes off alignment, timed beside it;
 10. the MoE layer of OLMoE-1B-7B at full width (d_model 2048, 64 experts
    top-8, d_expert 1024; float32 weights from ``torch.Generator`` seed
    1) through ``moe_dcra`` on three virtual packagings: (data 2, expert
@@ -49,25 +54,28 @@ script exits non-zero with no result line:
    1e-4 of max|out|;
 11. the grouped-matmul and flash-attention kernels against their plain
    versions at edge cases on every design (gmm: wgmma, blocked, simt;
-   flash: wgmma, simt), then ``ops.gmm`` at phase 10's expert buckets
-   (the fused packaging's ``xe`` of all shards, w = wg, the real expert
-   of every row tile) in float32 and in bf16, and ``ops.flash_attention``
-   at OLMoE's attention widths (B 2, H 16, S 4096, hd 128, causal, bf16
-   and float32), each on the design its launch plan names (asserted from
-   the wrappers' ``PATHS``) and timed beside its bound, its plain
-   version and one PyTorch call (``torch.bmm``,
-   ``scaled_dot_product_attention``); the bf16 gmm also on the simt
-   kernel, through an x that starts 2 bytes off a 16-byte boundary. Both
-   C entry points must refuse a launch plan altered in any field.
+   flash: wgmma, blocked, simt), then ``ops.gmm`` at phase 10's expert
+   buckets (the fused packaging's ``xe`` of all shards, w = wg, the real
+   expert of every row tile) in float32 and in bf16, and
+   ``ops.flash_attention`` at OLMoE's attention widths (B 2, H 16, S
+   4096, hd 128, causal, bf16 and float32), each on the design its launch
+   plan names (asserted from the wrappers' ``PATHS``) and timed beside
+   its bound, its plain version and one PyTorch call (``torch.bmm``,
+   ``scaled_dot_product_attention``, whose float32 kernel phase 1
+   names); the bf16 gmm and the float32 flash also on the simt kernels,
+   through inputs that start 2 or 4 bytes off a 16-byte boundary. The
+   gmm, flash and BSR C entry points must refuse a launch plan altered
+   in any field.
 
 Each path of phases 4-7, 9, 10 and 11 runs with every kernel's launch
 count set to 0 just before it and read just after; the kernel table
 sums them.
 The line before the last is the JSON kernel table (the gmm row carries
 its bf16 run under ``bf16_*`` keys, the flash row its float32 run under
-``f32_*``), the last line ``{"ok": true, "device": {...}}``. It needs a
-CUDA card and the repository around it: without either it exits with
-code 2.
+``f32_*``; ``design`` and ``f32_design`` on the BSR and flash rows name
+the design that ran), the last line ``{"ok": true, "device": {...}}``.
+It needs a CUDA card and the repository around it: without either it
+exits with code 2.
 """
 from __future__ import annotations
 
@@ -106,12 +114,18 @@ KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
                 "reduce_received": ("reduce_init_kernel", "reduce_kernel",
                                     "reduce_finish_kernel"),
                 "histogram": ("hist_kernel",),
-                "bsr_spmv": ("bsr_spmv_kernel",),
+                "bsr_spmv": ("bsr_spmv_kernel", "bsr_split_kernel",
+                             "bsr_combine_kernel"),
                 "gmm": ("gmm_kernel", "gmm_blocked_kernel",
                         "gmm_wgmma_kernel"),
-                "flash_attention": ("flash_kernel", "flash_wgmma_kernel")}
+                "flash_attention": ("flash_kernel", "flash_wgmma_kernel",
+                                    "flash_blocked_kernel")}
 #: libraries whose kernels must use the tensor cores' wgmma (HGMMA in SASS)
 WGMMA_LIBS = ("gmm", "flash_attention")
+#: kernels that must not spill (``-Xptxas -v``): the register-blocked ones
+NO_SPILL = ("gmm_blocked_kernel", "flash_blocked_kernel", "bsr_split_kernel")
+#: designs each of ``plans_refused``'s launches covers: gmm 4, flash 4, BSR 2
+PLAN_DESIGNS = 10
 CARD = ("cuda", 0)
 SCALE, SMALL_SCALE = 22, 18        # RMAT scales of the main and small graphs
 HIST_N, HIST_BINS = 1 << 28, 4096
@@ -473,7 +487,12 @@ def leaf_edge_cases(device):
     """Histogram bit-identical to ``plain_histogram`` (ids below 0 and past
     the last bin present, 2^20 bins for the global-memory branch); BSR
     within ``2*Kb*BS*2^-24`` of each row's sum of |a*x| of the plain
-    einsum (full float32). Returns the worst BSR error / tolerance."""
+    einsum (full float32) on the design its plan names: split at BS
+    32 / 64 / 128, R = 1, Kb off the slice count and BS past one pass,
+    rowblock at BS off 4 and with x 4 bytes off alignment; a block column
+    outside [0, Ncb) as a zero x tile on both; the split design
+    bit-identical over two runs. Returns the worst BSR error /
+    tolerance."""
     import numpy as np
     import torch
     from repro_torch.kernels import histogram as hist
@@ -491,33 +510,64 @@ def leaf_edge_cases(device):
                                          f"{bins} bins")
                 n_cases += 1
     worst = 0.0
-    shapes = [(4, 3, 32, 6), (8, 2, 64, 8), (2, 5, 128, 4), (6, 4, 64, 9),
-              (3, 7, 128, 5)]
-    for r, kb, bs, ncb in shapes:
+    shapes = [  # (R, Kb, BS, Ncb, x off alignment, design)
+        (4, 3, 32, 6, False, "split"), (8, 2, 64, 8, False, "split"),
+        (2, 5, 128, 4, False, "split"), (6, 4, 64, 9, False, "split"),
+        (3, 7, 128, 5, False, "split"), (1, 9, 128, 3, False, "split"),
+        (50, 20, 16, 9, False, "split"), (2, 3, 256, 4, False, "split"),
+        (5, 3, 30, 7, False, "rowblock"), (6, 4, 64, 9, True, "rowblock")]
+    for r, kb, bs, ncb, off, design in shapes:
         bc = torch.from_numpy(rng.integers(0, ncb, (r, kb)).astype(
             np.int32)).to(device)
         blocks = torch.from_numpy((rng.random((r, kb, bs, bs)) - 0.5).astype(
             np.float32)).to(device)
         x = torch.from_numpy((rng.random(ncb * bs) - 0.5).astype(
             np.float32)).to(device)
+        if off:                          # a view 4 bytes into its storage
+            x = torch.zeros(x.numel() + 1, device=device)[1:].copy_(x)
+        spmv.reset_launches()
         worst = max(worst, bsr_check(spmv, bc, blocks, x))
+        ran_only(spmv, design)
+        # a column out of range reads a zero x tile: as the plain version
+        # with that column at 0 and its block zero
+        bc[0, 0] = ncb if r % 2 else -1
+        keep = ((bc >= 0) & (bc < ncb))[..., None, None]
+        got = spmv.bsr_spmv(bc, blocks, x)
+        worst = max(worst, bsr_check(spmv, torch.where(keep[..., 0, 0], bc, 0),
+                                     blocks * keep, x, got))
+        if design == "split" and not torch.equal(got, spmv.bsr_spmv(
+                bc, blocks, x)):
+            raise AssertionError(f"bsr_spmv split: two runs differ at "
+                                 f"{tuple(blocks.shape)}")
     torch.cuda.synchronize()
     log(f"kernels: histogram {n_cases} cases bit-identical to the plain "
-        f"version; bsr_spmv {len(shapes)} shapes within tolerance of the "
-        f"plain version (worst |err| / tol {worst:.4f})")
+        f"version; bsr_spmv {len(shapes)} shapes on the design each plan "
+        f"names, each also with a block column out of range, within "
+        f"tolerance of the plain version (worst |err| / tol {worst:.4f}); "
+        f"the split design bit-identical over two runs")
     return worst
 
 
-def bsr_check(spmv, bc, blocks, x):
-    """The kernel against the plain einsum in full float32: worst ratio
-    of |err| to ``2*Kb*BS*2^-24 * sum |a*x|`` over the rows (must be
-    <= 1)."""
+def ran_only(mod, want):
+    """Every launch since ``mod.reset_launches()`` ran the ``want``
+    design."""
+    if mod.PATHS[want] != sum(mod.PATHS.values()):
+        raise AssertionError(f"{mod.__name__}: expected the {want} design "
+                             f"only, ran {mod.PATHS}")
+
+
+def bsr_check(spmv, bc, blocks, x, got=None):
+    """The kernel (or ``got``, its result on other inputs that must give
+    the same function) against the plain einsum in full float32: worst
+    ratio of |err| to ``2*Kb*BS*2^-24 * sum |a*x|`` over the rows (must
+    be <= 1)."""
     import torch
     kb, bs = blocks.shape[1], blocks.shape[2]
     torch.backends.cuda.matmul.allow_tf32 = False
     want = spmv.plain_bsr_spmv(bc, blocks, x)
     scale = spmv.plain_bsr_spmv(bc, blocks.abs(), x.abs())
-    got = spmv.bsr_spmv(bc, blocks, x)
+    if got is None:
+        got = spmv.bsr_spmv(bc, blocks, x)
     tol = 2 * kb * bs * 2.0 ** -24 * scale
     ratio = float(((got - want).abs() / tol.clamp(min=1e-30)).max())
     if not bool(((got - want).abs() <= tol).all()):
@@ -576,21 +626,40 @@ def bsr_bytes_flops(r, kb, bs, ncb):
 
 
 def bsr_row(spmv, bc, blocks, x):
-    """The BSR kernel against the plain einsum on these inputs, then its
-    time, the plain version's, the bound and the library call's."""
+    """The BSR kernel against the plain einsum on these inputs (on the
+    split design, asserted, and bit-identical over two runs), then its
+    time, the plain version's, the bound and the library call's; the
+    rowblock design, reached through a copy of x 4 bytes off alignment,
+    is checked and timed beside it (logged)."""
+    import torch
     r, kb, bs, _ = blocks.shape
     ncb = x.numel() // bs
+    spmv.reset_launches()
     ratio = bsr_check(spmv, bc, blocks, x)
     got = spmv.bsr_spmv(bc, blocks, x)
+    ran_only(spmv, "split")
+    if not torch.equal(got, spmv.bsr_spmv(bc, blocks, x)):
+        raise AssertionError(f"bsr_spmv split: two runs differ at R={r} "
+                             f"Kb={kb}")
     err = float((got - spmv.plain_bsr_spmv(bc, blocks, x)).abs().max())
     n_bytes, n_flops = bsr_bytes_flops(r, kb, bs, ncb)
     lib_ms, lib_note = bsr_library_ms(bc, blocks, x, got, r, kb, bs, ncb)
     out = row("bsr_spmv", err, cuda_ms(lambda: spmv.bsr_spmv(bc, blocks, x), 5),
               cuda_ms(lambda: spmv.plain_bsr_spmv(bc, blocks, x), 2), n_bytes,
               lib_ms, n_flops)
-    log(f"kernel bsr_spmv at R={r} Kb={kb} BS={bs} Ncb={ncb}: max |err| "
-        f"{err} vs the plain einsum, {ratio:.4f} of the tolerance")
-    return {**out, "n_bytes": n_bytes, "lib_note": lib_note}
+    xu = torch.zeros(x.numel() + 1, device=x.device)[1:].copy_(x)
+    spmv.reset_launches()
+    bsr_check(spmv, bc, blocks, xu)
+    rowblock_ms = cuda_ms(lambda: spmv.bsr_spmv(bc, blocks, xu), 5)
+    ran_only(spmv, "rowblock")
+    del xu
+    log(f"kernel bsr_spmv at R={r} Kb={kb} BS={bs} Ncb={ncb}, design split "
+        f"{spmv.launch_plan(r, kb, bs)}: max |err| {err} vs the plain "
+        f"einsum, {ratio:.4f} of the tolerance, two runs bit-identical; "
+        f"{out['ms'] / out['bound_ms']:.3f}x its bound; the rowblock design "
+        f"(x 4 bytes off alignment) {rowblock_ms:.4f} ms")
+    return {**out, "n_bytes": n_bytes, "lib_note": lib_note,
+            "design": "split"}
 
 
 def bsr_library_ms(bc, blocks, x, want, r, kb, bs, ncb):
@@ -968,6 +1037,7 @@ def run_spmv_csr(device, totals, rows):
         t0 = time.perf_counter()
         y = ops.spmv_csr(g, x, bs=128, device=device).cpu().numpy()
         run_s = time.perf_counter() - t0
+    ran_only(spmv, "split")
     bc, blocks = ops.csr_to_bsr(g, 128)
     kb = bc.shape[1]
     scale = np.bincount(g.row_of(), weights=np.abs(
@@ -1253,9 +1323,12 @@ def gmm_flash_edge_cases(device):
     launch_plan picks it), F off ft refused, a group id out of range
     giving zero rows on every design; flash at one causal tile,
     non-causal, a ragged S, hd off 16 and 128, hd 64 / 96 / 128 at S 128
-    / 300 / 1024 in bf16 (wgmma), bf16 with hd off 8 and float32 (simt),
-    constant V; and both C entry points refusing, on every design, a
-    launch plan that differs from their own geometry in any field."""
+    / 300 / 1024 in bf16 (wgmma), float32 at hd 4 / 80 / 100 / 128, S 1,
+    a ragged S past one 128-row tile and non-causal (blocked), bf16 with
+    hd off 8, float32 with hd off 4 and a float32 view 4 bytes off
+    alignment (simt), constant V; and the gmm, flash and BSR C entry
+    points refusing, on every design, a launch plan that differs from
+    their own geometry in any field."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as flash
@@ -1268,10 +1341,6 @@ def gmm_flash_edge_cases(device):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(device, dtype)
 
-    def ran(mod, want):
-        if mod.PATHS[want] != sum(mod.PATHS.values()):
-            raise AssertionError(f"{mod.__name__}: expected the {want} design "
-                                 f"only, ran {mod.PATHS}")
     worst = 0.0
     cases = [  # (T, D, F, E, rt, ft, dtype, design)
         (64, 40, 64, 3, 8, 128, f32, "simt"),
@@ -1294,7 +1363,7 @@ def gmm_flash_edge_cases(device):
         worst = max(worst, gmm_check(moe_gmm, rand(t, d, dtype=dt),
                                      rand(e, d, f, dtype=dt), gids, rt,
                                      ft)[1])
-        ran(moe_gmm, design)
+        ran_only(moe_gmm, design)
     try:
         moe_gmm.gmm(rand(128, 16), rand(2, 16, 192),
                     torch.zeros(1, dtype=torch.int32, device=device))
@@ -1310,7 +1379,7 @@ def gmm_flash_edge_cases(device):
             ones = moe_gmm.gmm(torch.ones(128, 16, device=device, dtype=dt),
                                torch.ones(2, 16, 64, device=device, dtype=dt),
                                ids.repeat_interleave(64 // rt), rt=rt)
-            ran(moe_gmm, design)
+            ran_only(moe_gmm, design)
             if not (bool((ones[:64] == 0).all())
                     and bool((ones[64:] == 16).all())):
                 raise AssertionError(f"gmm {design} {dt}: a group id out of "
@@ -1318,8 +1387,15 @@ def gmm_flash_edge_cases(device):
         refused = plans_refused(device)
     worst_f, worst_share = 0.0, 0.0
     flash_cases = [  # (BH, S, hd, dtype, causal, design)
-        (4, 64, 128, f32, True, "simt"), (4, 128, 64, f32, False, "simt"),
-        (2, 100, 80, f32, True, "simt"), (1, 1, 8, f32, True, "simt"),
+        (4, 64, 128, f32, True, "blocked"), (4, 128, 64, f32, False,
+                                             "blocked"),
+        (2, 100, 80, f32, True, "blocked"), (1, 1, 8, f32, True, "blocked"),
+        (2, 300, 128, f32, True, "blocked"), (3, 200, 4, f32, True,
+                                              "blocked"),
+        (2, 300, 100, f32, False, "blocked"), (1, 1, 4, f32, False,
+                                               "blocked"),
+        (2, 100, 30, f32, True, "simt"), (2, 129, 7, f32, False, "simt"),
+        (2, 200, 64, f32, True, "simt"),      # q, k, v 4 bytes off alignment
         (2, 100, 20, bf16, True, "simt"),
         (4, 256, 128, bf16, True, "wgmma"), (3, 200, 32, bf16, False, "wgmma"),
         (2, 128, 64, bf16, True, "wgmma"), (2, 300, 96, bf16, True, "wgmma"),
@@ -1328,9 +1404,12 @@ def gmm_flash_edge_cases(device):
         (2, 1024, 64, bf16, True, "wgmma"), (1, 1, 8, bf16, True, "wgmma")]
     for bh, s, hd, dt, causal, design in flash_cases:
         q, k, v = (rand(bh, s, hd, dtype=dt) for _ in range(3))
+        if design == "simt" and dt == f32 and hd % 4 == 0:
+            q, k, v = (torch.zeros(t.numel() + 1, device=device)[1:].copy_(
+                t.reshape(-1)).view(t.shape) for t in (q, k, v))
         flash.reset_launches()
         _, ratio, share = flash_check(flash, q, k, v, causal)
-        ran(flash, design)
+        ran_only(flash, design)
         worst_f, worst_share = max(worst_f, ratio), max(worst_share,
                                                         share or 0.0)
         const = flash.flash_attention(q, k, torch.ones_like(v), causal)
@@ -1345,18 +1424,19 @@ def gmm_flash_edge_cases(device):
         f"edge cases (worst |err| / tol {worst_f:.4f}; bf16 mean |err| "
         f"{worst_share:.4f} of the p-unrounded plain version's at worst), "
         f"constant V exact to 1e-5"
-        + (f"; {refused} altered launch plans refused by the C launchers"
-           if device.type == "cuda" else ""))
+        + (f"; {refused} altered launch plans refused by the C launchers "
+           f"({PLAN_DESIGNS} designs)" if device.type == "cuda" else ""))
 
 
 def plans_refused(device):
-    """Each design of gmm and flash attention launched through its C entry
-    point with its own launch plan (must succeed) and with each field of
-    that plan altered (must be refused, nothing launched). Returns the
+    """Each design of gmm, flash attention and the BSR SpMV launched
+    through its C entry point with its own launch plan (must succeed) and
+    with each field of that plan altered (must be refused, nothing
+    launched): :data:`PLAN_DESIGNS` designs, 7 fields each. Returns the
     count refused."""
     import torch
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import moe_gmm, spmv
     from repro_torch.kernels._build import library
     from repro_torch.kernels._launch import as_c
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -1385,8 +1465,8 @@ def plans_refused(device):
                  x.data_ptr(), w.data_ptr(), gids.data_ptr(), out.data_ptr(),
                  256, 64, 128, rt, 2, moe_gmm.DTYPES.index(dt), c, stream),
              f"gmm {plan.path} {dt}")
-    for dt, hd in ((torch.float32, 64), (torch.bfloat16, 64),
-                   (torch.bfloat16, 128)):
+    for dt, hd in ((torch.float32, 64), (torch.float32, 30),
+                   (torch.bfloat16, 64), (torch.bfloat16, 128)):
         q = torch.ones(2, 100, hd, device=device, dtype=dt)
         o = torch.empty_like(q)
         plan = flash.launch_plan(2, 100, hd, dt)
@@ -1395,7 +1475,23 @@ def plans_refused(device):
                  q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 2,
                  100, hd, hd ** -0.5, 1, flash.DTYPES.index(dt), c, stream),
              f"flash_attention {plan.path} {dt} hd {hd}")
+    for bs in (32, 30):
+        r, kb = 3, 5
+        bc = torch.zeros(r, kb, dtype=torch.int32, device=device)
+        blocks = torch.ones(r, kb, bs, bs, device=device)
+        x = torch.ones(2 * bs, device=device)
+        y = torch.empty(r * bs, device=device)
+        plan = spmv.launch_plan(r, kb, bs)
+        scratch = torch.empty(plan.grid[0] // r, r * bs, device=device)
+        each(plan, spmv.PATH_CODES[plan.path],
+             lambda c: library("spmv").dcra_bsr_spmv(
+                 bc.data_ptr(), blocks.data_ptr(), x.data_ptr(), r, kb, bs, 2,
+                 y.data_ptr(), scratch.data_ptr(), c, stream),
+             f"bsr_spmv {plan.path} bs {bs}")
     torch.cuda.synchronize()
+    if refused != 7 * PLAN_DESIGNS:
+        raise AssertionError(f"{refused} altered plans refused, expected "
+                             f"{7 * PLAN_DESIGNS}")
     return refused
 
 
@@ -1499,8 +1595,9 @@ def run_gmm(device, totals, stats, params):
 def run_flash(device, totals):
     """``ops.flash_attention`` at OLMoE's attention widths, causal, in
     bf16 (the kernel table's row, on wgmma) and float32 (``f32_*`` keys,
-    on the simt kernel), each against the plain version, timed beside
-    SDPA."""
+    on the blocked kernel), each against the plain version, timed beside
+    SDPA; in float32 also the simt kernel (on copies of q, k, v 4 bytes
+    off alignment)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
@@ -1520,7 +1617,7 @@ def run_flash(device, totals):
         with MainPath(f"ops.flash_attention {tag}", ("flash_attention",),
                       totals) as path:
             ops.flash_attention(q, k, v, causal=True)
-        if design != ("wgmma" if tag == "bf16" else "simt") \
+        if design != ("wgmma" if tag == "bf16" else "blocked") \
                 or flash.PATHS[design] != 1:
             raise AssertionError(f"ops.flash_attention {tag} at the main "
                                  f"shape ran {flash.PATHS}")
@@ -1555,13 +1652,52 @@ def run_flash(device, totals):
                 f"{n_flops / r['ms'] / 1e9:.1f} TFLOP/s", n_bytes,
                 "scaled_dot_product_attention(is_causal=True)" if lib_ok
                 else "SDPA: none (off the kernel's tolerance)")
+        r["design"] = design
         if out is None:
             out = r
-        else:
-            out.update({f"f32_{key}": r[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
+            continue
+        out.update({f"f32_{key}": r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "design")})
+        flash_f32_simt(flash, q, k, v, three)
     return out
+
+
+def flash_f32_simt(flash, q, k, v, three):
+    """The float32 simt kernel at the main shape, reached through copies of
+    q, k, v that start 4 bytes off a 16-byte boundary: held to the error
+    bound and timed (logged, beside the blocked kernel's row)."""
+    import torch
+    qu, ku, vu = (torch.zeros(t.numel() + 1, device=t.device)[1:].copy_(
+        t.reshape(-1)).view(three(t).shape) for t in (q, k, v))
+    flash.reset_launches()
+    _, ratio, _ = flash_check(flash, qu, ku, vu, True)
+    ms = cuda_ms(lambda: flash.flash_attention(qu, ku, vu, True), 2)
+    ran_only(flash, "simt")
+    log(f"kernel flash_attention float32 on the simt kernel (q, k, v 4 bytes "
+        f"off alignment): {ms:.4f} ms, {ratio:.4f} of the tolerance")
+
+
+def sdpa_kernels(device):
+    """The device kernels of three float32 ``scaled_dot_product_attention``
+    calls at :data:`FLASH_SHAPE`, causal, by the profiler
+    (:func:`profile_kernels`): ``"name ms; ..."`` a call, or why none was
+    seen. Run before any other profiled run: in phase 11, after the
+    earlier phases' profiled runs, the profiler has seen no device kernel
+    of this call (cause not found)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    q, k, v = (torch.randn(*FLASH_SHAPE, generator=gen, device=device)
+               for _ in range(3))
+
+    def calls():
+        for _ in range(3):
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    _, total, _, top = profile_kernels(calls, 3)
+    return ("; ".join(f"{name} {ms / 3:.4f} ms" for name, ms in top)
+            or f"no device kernel seen by the profiler ({total} ms)")
 
 
 def _demangle(names):
@@ -1606,9 +1742,10 @@ def ptxas_report(log_text):
 def kernel_resources(recs):
     """Print each library's kernels with their registers, spills and
     static shared memory (``-Xptxas -v``) and its count of ``HGMMA``
-    instructions (``cuobjdump -sass``); fail if a library of
-    :data:`WGMMA_LIBS` has none. Returns ``{library: HGMMA count or
-    None}`` (None without cuobjdump)."""
+    instructions (``cuobjdump -sass``); fail if a kernel of
+    :data:`NO_SPILL` spills or a library of :data:`WGMMA_LIBS` has no
+    HGMMA. Returns ``{library: HGMMA count or None}`` (None without
+    cuobjdump)."""
     tool = shutil.which("cuobjdump")
     if tool is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
         tool = "/usr/local/cuda/bin/cuobjdump"
@@ -1619,6 +1756,10 @@ def kernel_resources(recs):
         for kern, regs, st, ld, smem in ptxas_report(text):
             log(f"ptxas {lib}: {kern}: {regs} registers, spill stores {st} "
                 f"B, spill loads {ld} B, static smem {smem} B")
+            if (st or ld) and kern.split("<")[0] in NO_SPILL:
+                raise AssertionError(f"{kern} spills ({st} B stored, {ld} B "
+                                     f"loaded): a register-blocked kernel "
+                                     f"must keep its tiles in registers")
         if tool is None:
             counts[lib] = None
             continue
@@ -1678,6 +1819,9 @@ def main() -> int:
         + ", ".join(f"{Path(r['path']).name} {r['seconds']:.2f} s"
                     for r in recs.values()))
     hgmma = kernel_resources(recs)
+    log(f"SDPA float32 at B={FLASH_SHAPE[0]} H={FLASH_SHAPE[1]} "
+        f"S={FLASH_SHAPE[2]} hd={FLASH_SHAPE[3]} causal runs: "
+        f"{sdpa_kernels(device)}")
     t0 = phase("1 (card, build)", t0)
 
     # ---- 2: host setup -----------------------------------------------------

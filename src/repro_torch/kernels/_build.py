@@ -44,7 +44,8 @@ _SIGNATURES = {
         "dcra_histogram": (_P, _I64, _I32, _P, _P),
     },
     "spmv": {
-        "dcra_bsr_spmv": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P),
+        "dcra_bsr_spmv": (_P, _P, _P, _I64, _I64, _I32, _I64, _P, _P, _P,
+                          _P),
     },
     "gmm": {
         "dcra_gmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,

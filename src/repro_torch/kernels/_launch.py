@@ -1,4 +1,4 @@
-"""The launch plan that the gmm and flash-attention wrappers share.
+"""The launch plan that the gmm, flash-attention and BSR wrappers share.
 
 Each wrapper's ``launch_plan`` computes a :class:`LaunchPlan` in Python
 from shapes and types alone; the wrapper hands it to its C entry point
@@ -28,7 +28,7 @@ class LaunchPlan(NamedTuple):
 
 
 def aligned(*ts: torch.Tensor) -> bool:
-    """Every base address 16-byte aligned, as TMA needs."""
+    """Every base address 16-byte aligned, as TMA and 16-byte loads need."""
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 

@@ -26,9 +26,10 @@
 // against 4*BH*S*hd elements of q, k, v and o (0.27 GB in f32, 0.08 ms
 // at 3.35 TB/s): the operations bind it.
 //
-// Two designs, chosen by the wrapper's launch_plan from the dtype and the
-// shape (never by a failed launch); each launcher refuses a plan whose
-// tile, grid, threads, stages or shared memory differ from its own:
+// Three designs, chosen by the wrapper's launch_plan from the dtype, the
+// shape and the alignment (never by a failed launch); each launcher refuses
+// a plan whose tile, grid, threads, stages or shared memory differ from its
+// own:
 //  * wgmma (bf16, hd % 8 == 0, 16-byte aligned q, k, v): FlashAttention-
 //    3's structure, kept simple. One block of four warpgroups per
 //    (192-row q tile, bh); bh is blockIdx.x and the q tiles run from the
@@ -50,7 +51,30 @@
 //    the producer 24. Three consumer warpgroups, because with fewer each
 //    SM scheduler holds too few consumer warps to hide the softmax's
 //    dependent instructions, and the tensor cores wait for them.
-//  * simt (f32, or bf16 with hd % 8 != 0): one block of 256 threads per
+//  * blocked (f32, hd % 4 == 0, 16-byte aligned q, k, v): float32 FFMA,
+//    no tensor cores (TF32 would round the products, and error_bound is
+//    built on float32 roundoff). Bound on this card by the FFMA rate (2.05
+//    ms at the shape above), so the design is about feeding the FMA pipes
+//    from registers: one block of 256 threads per (bh, 128-row q tile),
+//    the longest causal tiles first, one block an SM. q sits transposed in
+//    shared memory ([hd][128], loaded once); each 64-key step computes S =
+//    q k^T with every thread owning an 8-row x 4-key tile (rows 4ty..+3 and
+//    64+4ty..+3, keys tx + 16j), read as float4: per 4 of depth, 8 q loads
+//    (two rows of a warp's lanes share each) and 4 k loads (K rows padded to
+//    132 floats, so 16 lanes hit distinct bank groups) feed 128 FMAs. The
+//    online softmax runs on those registers (row max over the 16 lanes of a
+//    row by shuffles, each lane keeping its own part of l, summed at the
+//    end), p goes to shared memory transposed ([64][132]), and o += p v
+//    gives every thread an 8 x 8 block of o (columns 4tx..+3 and
+//    64+4tx..+3): per key, 2 float4 of p and 2 of v feed 64 FMAs. K and V
+//    are staged with 16-byte cp.async.cg copies (rows past S zero-filled)
+//    into a two-slot ring in which they alternate: V(j) lands while S(j)
+//    and the softmax run, K(j+1) while p v(j) runs, so no step waits on a
+//    load and each step takes two __syncthreads. Shared memory: 165,888 B
+//    (q 65,536, K 33,792, V 32,768, p 33,792) at every hd; hd < 128 leaves
+//    part of it unused and computes o columns past hd that are not stored.
+//  * simt (f32 with hd % 4 != 0 or unaligned bases, bf16 with hd % 8 != 0
+//    or unaligned bases): one block of 256 threads per
 //    (bh, 64-row q tile). The q tile sits in shared memory (f32, rows
 //    padded to hd + 1 floats against bank conflicts) for the whole loop;
 //    each step stages one 64-row K tile (padded the same way) and V tile
@@ -212,6 +236,230 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kHdPerThread; ++c) {
       const int col = tx + 16 * c;
       if (col < hd) store(o + base + (int64_t)qi * hd + col, acc[i][c] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// blocked: f32, hd % 4 == 0, 16-byte aligned q, k, v
+// ---------------------------------------------------------------------------
+constexpr int kBq = 128;                  // q rows a block
+constexpr int kBHalf = kBq / 2;           // a thread's second row group
+constexpr int kBThreads = 256;            // 16 row groups x 16 key groups
+constexpr int kBStages = 2;               // the ring's slots: K and V
+constexpr int kBKld = kMaxHd + 4;         // K row stride, floats (528 B)
+constexpr int kBPld = kBq + 4;            // p^T row stride, floats
+constexpr int kBQFloats = kMaxHd * kBq;   // q^T [hd][kBq]
+constexpr int kBKFloats = kTile * kBKld;  // K [kTile][kBKld]
+constexpr int kBVFloats = kTile * kMaxHd; // V [kTile][kMaxHd]
+constexpr int kBPFloats = kTile * kBPld;  // p^T [kTile][kBPld]
+constexpr int kBSmem =
+    4 * (kBQFloats + kBKFloats + kBVFloats + kBPFloats);   // 165,888 B
+
+// 16 bytes global -> shared, asynchronously; zeros where !ok (src unread)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows k0 .. k0 + 63 of a [s_len, hd] matrix into dst [64][ld] with
+// 16-byte copies; rows past s_len as zeros
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* src, int k0,
+                                           int s_len, int hd) {
+  const int per_row = hd / 4;
+  for (int e = threadIdx.x; e < kTile * per_row; e += kBThreads) {
+    const int r = e / per_row, c = 4 * (e - r * per_row);
+    const bool ok = k0 + r < s_len;
+    cp_async16(dst + r * ld + c, ok ? src + (int64_t)(k0 + r) * hd + c : src,
+               ok);
+  }
+}
+
+// the 8 floats p[0..3] and p[half..half+3]: a thread's rows r0..r0+3 and
+// r0+kBHalf.., or its o columns 4tx..4tx+3 and 64+4tx..64+4tx+3
+__device__ __forceinline__ void load8(const float* p, int half,
+                                      float (&out)[8]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 t = *reinterpret_cast<const float4*>(p + half * h);
+    out[4 * h] = t.x; out[4 * h + 1] = t.y;
+    out[4 * h + 2] = t.z; out[4 * h + 3] = t.w;
+  }
+}
+
+__global__ void __launch_bounds__(kBThreads, 1)
+    flash_blocked_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int s_len, int hd, float scale, int causal) {
+  extern __shared__ __align__(16) float bsmem[];
+  float* qt = bsmem;                   // [hd][kBq]: q transposed
+  float* ks = qt + kBQFloats;          // [kTile][kBKld]
+  float* vs = ks + kBKFloats;          // [kTile][kMaxHd]
+  float* pt = vs + kBVFloats;          // [kTile][kBPld]: p transposed
+  const int64_t base = (int64_t)blockIdx.x * s_len * hd;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBq;   // longest tiles first
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int r0 = 4 * ty;   // this thread's rows r0..r0+3, r0+kBHalf..+3
+  const int hd4 = hd / 4;
+  const int n_tiles = (s_len + kTile - 1) / kTile;
+  // causal: visit tile j while its first key <= the q tile's last row
+  const int n_visit = causal ? min(n_tiles, (q0 + kBq - 1) / kTile + 1)
+                             : n_tiles;
+
+  stage_rows(ks, kBKld, kb, 0, s_len, hd);   // K(0) lands while q^T fills
+  cp_async_commit();
+  {
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int rr = lane; rr < kBq; rr += 32) {
+      const int qi = q0 + rr;
+      for (int c4 = warp; c4 < hd4; c4 += kBThreads / 32) {
+        const float4 val =
+            qi < s_len
+                ? *reinterpret_cast<const float4*>(qb + (int64_t)qi * hd +
+                                                   4 * c4)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+        qt[(4 * c4 + 0) * kBq + rr] = val.x;
+        qt[(4 * c4 + 1) * kBq + rr] = val.y;
+        qt[(4 * c4 + 2) * kBq + rr] = val.z;
+        qt[(4 * c4 + 3) * kBq + rr] = val.w;
+      }
+    }
+  }
+  float acc[8][8], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kMaskValue;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+  }
+  for (int j = 0; j < n_visit; ++j) {
+    const int k0 = j * kTile;
+    cp_async_wait_all();
+    __syncthreads();   // K(j) and q^T visible; p v(j-1) done with vs and pt
+    stage_rows(vs, kMaxHd, vb, k0, s_len, hd);
+    cp_async_commit();
+
+    // S = q k^T: this thread's rows, keys tx + 16 jj
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.0f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < hd4; ++d4) {
+      float kv[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            ks + (tx + 16 * jj) * kBKld + 4 * d4);
+        kv[jj][0] = t.x; kv[jj][1] = t.y; kv[jj][2] = t.z; kv[jj][3] = t.w;
+      }
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        float a[8];
+        load8(qt + (4 * d4 + dd) * kBq + r0, kBHalf, a);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            sc[i][jj] = fmaf(a[i], kv[jj][dd], sc[i][jj]);
+      }
+    }
+
+    // online softmax on the registers; p^T to shared memory
+    const bool edge =
+        (causal && k0 + kTile - 1 > q0) || k0 + kTile > s_len;
+    float alpha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qi = q0 + r0 + (i < 4 ? i : kBHalf - 4 + i);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float s = sc[i][jj] * scale;
+        if (edge) {
+          const int kj = k0 + tx + 16 * jj;
+          if (kj >= s_len) s = -INFINITY;           // not a key
+          else if (causal && kj > qi) s = kMaskValue;
+        }
+        sc[i][jj] = s;
+        mx = fmaxf(mx, s);
+      }
+      for (int off = 8; off > 0; off >>= 1)        // the row's 16 lanes
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        sc[i][jj] = expf(sc[i][jj] - m_new);
+        sum += sc[i][jj];
+      }
+      alpha[i] = expf(m[i] - m_new);
+      l[i] = l[i] * alpha[i] + sum;   // this lane's keys; lanes summed last
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(pt + (tx + 16 * jj) * kBPld + r0 +
+                                   kBHalf * h) =
+            make_float4(sc[4 * h][jj], sc[4 * h + 1][jj], sc[4 * h + 2][jj],
+                        sc[4 * h + 3][jj]);
+    cp_async_wait_all();
+    __syncthreads();   // p^T and V(j) visible; S(j) done with ks
+    if (j + 1 < n_visit) {
+      stage_rows(ks, kBKld, kb, k0 + kTile, s_len, hd);
+      cp_async_commit();
+    }
+
+    // o = o alpha + p v: this thread's rows, columns 4tx.. and 64 + 4tx..
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha[i];
+#pragma unroll 8
+    for (int kk = 0; kk < kTile; ++kk) {
+      float p[8], w[8];
+      load8(pt + kk * kBPld + r0, kBHalf, p);
+      load8(vs + kk * kMaxHd + 4 * tx, 64, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p[i], w[c], acc[i][c]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float lt = l[i];
+    for (int off = 8; off > 0; off >>= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const int qi = q0 + r0 + (i < 4 ? i : kBHalf - 4 + i);
+    if (qi >= s_len) continue;
+    const float inv = 1.0f / fmaxf(lt, 1e-30f);
+    float* orow = o + base + (int64_t)qi * hd;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 64 * h + 4 * tx;
+      if (col < hd)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv,
+                        acc[i][4 * h + 2] * inv, acc[i][4 * h + 3] * inv);
     }
   }
 }
@@ -488,6 +736,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+int launch_blocked(const void* q, const void* k, const void* v, void* o,
+                   int64_t bh, int s_len, int hd, float scale, int causal,
+                   const sm90::LaunchPlan& plan, cudaStream_t stream) {
+  const dim3 grid((unsigned)bh, (unsigned)((s_len + kBq - 1) / kBq));
+  if (!sm90::plan_is(plan, kBq, grid, kBThreads, kBStages, kBSmem))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_blocked_kernel<<<grid, kBThreads, kBSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s_len, hd, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 int64_t bh, int s_len, int hd, float scale, int causal,
@@ -515,7 +780,7 @@ extern "C" {
 // q, k, v, o: [bh, s_len, hd], contiguous; dtype 0 = float32, 1 =
 // bfloat16 (all four alike); 1 <= hd <= 128; bh <= 65535. plan: the
 // wrapper's launch plan, its path 0 = simt, 1 = wgmma (bf16, hd % 8 ==
-// 0); launched only as planned.
+// 0), 2 = blocked (f32, hd % 4 == 0); launched only as planned.
 int dcra_flash_attention(const void* q, const void* k, const void* v,
                          void* o, int64_t bh, int32_t s_len, int32_t hd,
                          float scale, int32_t causal, int32_t dtype,
@@ -529,6 +794,11 @@ int dcra_flash_attention(const void* q, const void* k, const void* v,
                                        causal, *plan, stream)
                     : launch_wgmma<128>(q, k, v, o, bh, s_len, hd, scale,
                                         causal, *plan, stream);
+  }
+  if (plan->path == 2) {
+    if (dtype != 0 || hd % 4) return (int)cudaErrorInvalidValue;
+    return launch_blocked(q, k, v, o, bh, s_len, hd, scale, causal, *plan,
+                          stream);
   }
   if (plan->path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)

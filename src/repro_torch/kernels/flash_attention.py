@@ -8,8 +8,9 @@ the output in q's type.
 
 On a CUDA tensor :func:`flash_attention` launches a hand-written kernel
 of ``csrc/flash_attention.cu``, chosen by :func:`launch_plan` (bf16 on
-wgmma with 192-row q tiles, float32 on the simt kernel with 64-row q
-tiles; both on 64-key tiles), and adds one to
+wgmma with 192-row q tiles, float32 on the register-blocked FFMA kernel
+with 128-row q tiles, other widths and unaligned views on the simt kernel
+with 64-row q tiles; all on 64-key tiles), and adds one to
 ``LAUNCHES["flash_attention"]`` and to its design's entry of ``PATHS``;
 on a CPU tensor it runs :func:`plain_flash_attention` with the same key
 tile. Any other device raises.
@@ -29,9 +30,14 @@ NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 WGMMA_GROUPS = 3       # consumer warpgroups of 64 q rows
 WGMMA_STAGES = 3       # K/V ring
+BLOCKED_ROWS = 128     # q rows of a blocked block
+#: the blocked kernel's shared memory at every hd: q^T [128][128], K [64][132],
+#: V [64][128], p^T [64][132], float32
+BLOCKED_SMEM = 4 * (MAX_HEAD_DIM * BLOCKED_ROWS + TILE * (MAX_HEAD_DIM + 4)
+                    + TILE * MAX_HEAD_DIM + TILE * (BLOCKED_ROWS + 4))
 #: the designs of ``csrc/flash_attention.cu``, as the C entry point numbers
 #: them
-PATH_CODES = {"simt": 0, "wgmma": 1}
+PATH_CODES = {"simt": 0, "wgmma": 1, "blocked": 2}
 
 #: kernel launches since the last reset, in all and by design (chip_smoke
 #: reads these)
@@ -55,9 +61,13 @@ def launch_plan(bh: int, s: int, hd: int, dtype: torch.dtype,
       consumer warpgroups) and :data:`TILE` keys a step, hd padded to 64
       or 128, a 3-stage K/V ring, a producer warpgroup, grid (bh, q
       tiles);
-    * ``simt`` otherwise (float32, bf16 with hd off 8, or unaligned
-      bases): 64 q rows and :data:`TILE` keys, 256 threads, grid (q tiles,
-      bh).
+    * ``blocked`` for float32 with ``hd % 4 == 0`` (16-byte rows) and
+      16-byte aligned bases: 128 q rows and :data:`TILE` keys a step in
+      float32 FFMA, 256 threads, K and V alternating in a two-slot
+      ``cp.async`` ring, :data:`BLOCKED_SMEM` bytes, grid (bh, q tiles);
+    * ``simt`` otherwise (bf16 with hd off 8, float32 with hd off 4, or
+      unaligned bases): 64 q rows and :data:`TILE` keys, 256 threads,
+      grid (q tiles, bh).
 
     ``aligned`` says whether q, k and v start on 16-byte boundaries.
     ``tiles`` is (q rows, keys, head width) of a step.
@@ -74,6 +84,10 @@ def launch_plan(bh: int, s: int, hd: int, dtype: torch.dtype,
         return LaunchPlan("wgmma", (q_rows, TILE, hdp),
                           (bh, -(-s // q_rows), 1), 128 * (WGMMA_GROUPS + 1),
                           WGMMA_STAGES, smem)
+    if dtype == torch.float32 and hd % 4 == 0 and aligned:
+        return LaunchPlan("blocked", (BLOCKED_ROWS, TILE, hd),
+                          (bh, -(-s // BLOCKED_ROWS), 1), 256, 2,
+                          BLOCKED_SMEM)
     smem = 4 * (2 * TILE * (hd + 1) + TILE * hd + TILE * (TILE + 1))
     return LaunchPlan("simt", (TILE, TILE, hd), (-(-s // TILE), bh, 1), 256,
                       1, smem)
@@ -162,8 +176,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``q, k, v [BH, S, hd]`` -> ``[BH, S, hd]`` in q's type. On the
     card: float32 or bfloat16 alike, contiguous, ``hd <= 128``, ``BH <=
     65535``; any S (a ragged last tile is masked). The design follows
-    :func:`launch_plan`: bf16 with ``hd % 8 == 0`` runs on wgmma, float32,
-    bf16 with other widths and unaligned bases on the simt kernel."""
+    :func:`launch_plan`: bf16 with ``hd % 8 == 0`` runs on wgmma, float32
+    with ``hd % 4 == 0`` on the blocked kernel, other widths and unaligned
+    bases on the simt kernel."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"need q, k, v [BH, S, hd] alike, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

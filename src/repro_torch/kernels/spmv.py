@@ -1,9 +1,12 @@
 """Block-sparse-row SpMV: the kernel, its plain version, and the host-side
 CSR -> BSR conversion (counterpart of ``repro/kernels/spmv.py``).
 
-On a CUDA tensor :func:`bsr_spmv` launches the hand-written kernel
-(``csrc/spmv.cu``) and adds one to ``LAUNCHES["bsr_spmv"]``; on a CPU
-tensor it runs :func:`plain_bsr_spmv`. Any other device raises.
+On a CUDA tensor :func:`bsr_spmv` launches a hand-written kernel of
+``csrc/spmv.cu``, chosen by :func:`launch_plan` (``split`` for BS a
+multiple of 4 on 16-byte aligned arrays, ``rowblock`` otherwise), and
+adds one to ``LAUNCHES["bsr_spmv"]`` and to its design's entry of
+``PATHS``; on a CPU tensor it runs :func:`plain_bsr_spmv`. Any other
+device raises.
 
 Padding contract, as in the reference: rows of ``block_cols`` are padded
 with block column 0 and all-zero blocks, so padded steps add nothing.
@@ -15,14 +18,60 @@ import torch
 
 from ..core.fabric import resolve_device
 from ..sparse.csr import CSR
+from ._launch import LaunchPlan, aligned as _aligned, as_c
 from .route import _check, _on_cuda, _raise_on, _stream
 
-#: kernel launches since the last reset (chip_smoke reads this)
+THREADS = 256
+SPLIT_ROWS = 128          # rows of a split block's pass: 8 warps x 16
+#: the split design's least block count: 8 an SM on the H100's 132 SMs
+TARGET_BLOCKS = 8 * 132
+#: the designs of ``csrc/spmv.cu``, as the C entry point numbers them
+PATH_CODES = {"rowblock": 0, "split": 1}
+
+#: kernel launches since the last reset, in all and by design (chip_smoke
+#: reads these)
 LAUNCHES = {"bsr_spmv": 0}
+PATHS = {path: 0 for path in PATH_CODES}
 
 
 def reset_launches() -> None:
     LAUNCHES["bsr_spmv"] = 0
+    for path in PATHS:
+        PATHS[path] = 0
+
+
+def n_splits(r: int, kb: int) -> int:
+    """Slices of the Kb loop on the split design: 1 where ``r`` row blocks
+    already make :data:`TARGET_BLOCKS` blocks, else the power of two that
+    reaches them, at most ``kb`` (so no slice is empty)."""
+    if kb < 1 or r >= TARGET_BLOCKS:
+        return 1
+    want = -(-TARGET_BLOCKS // r)
+    return min(kb, 1 << (want - 1).bit_length())
+
+
+def launch_plan(r: int, kb: int, bs: int, aligned: bool = True
+                ) -> LaunchPlan:
+    """The design and launch of ``bsr_spmv`` on ``blocks [r, kb, bs, bs]``:
+
+    * ``split`` for ``bs % 4 == 0`` and 16-byte aligned blocks and x:
+      :func:`n_splits` slices of the Kb loop, one block of 256 threads a
+      (row block, slice), block ``(r, s)`` walking ``k`` in ``[s*kb/splits,
+      (s+1)*kb/splits)`` over passes of :data:`SPLIT_ROWS` rows, no shared
+      memory; with more than one slice the partial sums go to a
+      ``[splits, r*bs]`` scratch summed in slice order by a second kernel;
+    * ``rowblock`` otherwise: one block of 256 threads a row block, the x
+      tile and the row sums in ``2*bs`` floats of shared memory.
+
+    ``tiles`` is (rows a pass, block columns a slice at most, bs); the
+    grid is 1D, ``r * splits`` blocks. ``csrc/spmv.cu`` launches this plan
+    as it is and refuses one that differs from its own geometry."""
+    if bs % 4 == 0 and aligned:
+        splits = n_splits(r, kb)
+        return LaunchPlan("split", (SPLIT_ROWS, -(-kb // splits), bs),
+                          (r * splits, 1, 1), THREADS, 1, 0)
+    return LaunchPlan("rowblock", (bs, kb, bs), (r, 1, 1), THREADS, 1,
+                      2 * bs * 4)
 
 
 def plain_bsr_spmv(block_cols, blocks, x):
@@ -36,7 +85,10 @@ def plain_bsr_spmv(block_cols, blocks, x):
 def bsr_spmv(block_cols, blocks, x):
     """``block_cols [R, Kb]`` int32, ``blocks [R, Kb, BS, BS]`` float32,
     ``x [Ncb * BS]`` float32 -> ``y [R * BS]`` float32, accumulated in
-    float32. Block columns must lie in ``[0, Ncb)``."""
+    float32. Block columns must lie in ``[0, Ncb)`` (on the card one
+    outside reads as a zero x tile). The design follows
+    :func:`launch_plan`; on the split design two runs give the same
+    bits."""
     if not _on_cuda(blocks):
         return plain_bsr_spmv(block_cols, blocks, x)
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
@@ -52,11 +104,18 @@ def bsr_spmv(block_cols, blocks, x):
     y = torch.empty(r * bs, dtype=torch.float32, device=dev)
     if r == 0:
         return y
+    plan = launch_plan(r, kb, bs, _aligned(blocks, x))
+    splits = plan.grid[0] // r
+    scratch = (torch.empty(splits, r * bs, dtype=torch.float32, device=dev)
+               if splits > 1 else None)
     from ._build import library
     _raise_on(library("spmv").dcra_bsr_spmv(
         block_cols.data_ptr(), blocks.data_ptr(), x.data_ptr(), r, kb, bs,
-        x.numel() // bs, y.data_ptr(), _stream(dev)), "bsr_spmv")
+        x.numel() // bs, y.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        as_c(plan, PATH_CODES[plan.path]), _stream(dev)), "bsr_spmv")
     LAUNCHES["bsr_spmv"] += 1
+    PATHS[plan.path] += 1
     return y
 
 

@@ -10,9 +10,10 @@ The ``cuda`` tests skip without a card: the kernels have no CPU mode.
 The others check the wrappers' device rule on the CPU (a CPU tensor
 takes the plain version and launches nothing, any device other than
 CUDA or CPU raises), the error bounds the card tests use, and the launch
-plans by which the gmm and flash-attention wrappers pick a kernel design
-and launch it.
+plans by which the gmm, flash-attention and BSR wrappers pick a kernel
+design and launch it.
 """
+import itertools
 import os
 import sys
 
@@ -174,8 +175,25 @@ def test_cuda_histogram_matches_plain(cuda_device, n, bins):
 
 
 # (R, Kb, BS, Ncb): tests/test_kernels.py's shapes, BS off the warp width
+# (all split, BS a multiple of 4); then R = 1 (one slice a block column),
+# Kb not divisible by the slices (R 50: 16 slices of Kb 20), R = Kb = 128
+# (spmv_csr's grid at BS 16), BS past one 128-row pass, and BS off 4
+# (rowblock)
 BSR_CASES = [(4, 3, 32, 6), (8, 2, 64, 8), (2, 5, 128, 4), (5, 3, 48, 7),
-             (3, 2, 16, 2), (1, 1, 128, 1)]
+             (3, 2, 16, 2), (1, 1, 128, 1), (1, 7, 64, 3), (50, 20, 16, 9),
+             (128, 128, 16, 128), (2, 3, 256, 4), (5, 3, 30, 7),
+             (3, 4, 6, 5)]
+
+
+def _bsr_inputs(seed, r, kb, bs, ncb, device):
+    rng = np.random.default_rng(seed)
+    bc = torch.from_numpy(rng.integers(0, ncb, (r, kb)).astype(
+        np.int32)).to(device)
+    blocks = torch.from_numpy((rng.random((r, kb, bs, bs)) - 0.5).astype(
+        np.float32)).to(device)
+    x = torch.from_numpy((rng.random(ncb * bs) - 0.5).astype(
+        np.float32)).to(device)
+    return bc, blocks, x
 
 
 @pytest.mark.cuda
@@ -183,14 +201,8 @@ BSR_CASES = [(4, 3, 32, 6), (8, 2, 64, 8), (2, 5, 128, 4), (5, 3, 48, 7),
 def test_cuda_bsr_spmv_matches_plain(cuda_device, r, kb, bs, ncb):
     """Two float32 sums of the same Kb*BS products in other orders:
     within 2*Kb*BS*2^-24 of each row's sum of |a * x| (the plain einsum
-    in full float32, TF32 off)."""
-    rng = np.random.default_rng(r * bs + kb)
-    bc = torch.from_numpy(rng.integers(0, ncb, (r, kb)).astype(
-        np.int32)).to(cuda_device)
-    blocks = torch.from_numpy((rng.random((r, kb, bs, bs)) - 0.5).astype(
-        np.float32)).to(cuda_device)
-    x = torch.from_numpy((rng.random(ncb * bs) - 0.5).astype(
-        np.float32)).to(cuda_device)
+    in full float32, TF32 off), on the design the plan names."""
+    bc, blocks, x = _bsr_inputs(r * bs + kb, r, kb, bs, ncb, cuda_device)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -202,8 +214,50 @@ def test_cuda_bsr_spmv_matches_plain(cuda_device, r, kb, bs, ncb):
     got = tspmv.bsr_spmv(bc, blocks, x)
     torch.cuda.synchronize()
     assert tspmv.LAUNCHES["bsr_spmv"] == 1
+    design = tspmv.launch_plan(r, kb, bs).path
+    assert design == ("split" if bs % 4 == 0 else "rowblock")
+    assert tspmv.PATHS[design] == 1 == sum(tspmv.PATHS.values())
     assert bool(((got - want).abs() <= 2 * kb * bs * 2.0 ** -24 * scale)
                 .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [32, 30])
+def test_cuda_bsr_spmv_reads_a_column_out_of_range_as_zero(cuda_device, bs):
+    """A block column below 0 or from Ncb on reads a zero x tile (its block
+    is still read): the result equals the plain version's with those
+    columns at 0 and their blocks zero, on each design."""
+    r, kb, ncb = 6, 5, 4
+    bc, blocks, x = _bsr_inputs(bs, r, kb, bs, ncb, cuda_device)
+    bc[0, 1], bc[3, 4] = ncb, -1
+    keep = (bc >= 0) & (bc < ncb)
+    tspmv.reset_launches()
+    got = tspmv.bsr_spmv(bc, blocks, x)
+    torch.cuda.synchronize()
+    assert tspmv.PATHS["split" if bs == 32 else "rowblock"] == 1
+    _no_tf32()
+    want = tspmv.plain_bsr_spmv(torch.where(keep, bc, 0),
+                                blocks * keep[..., None, None], x)
+    scale = tspmv.plain_bsr_spmv(torch.where(keep, bc, 0),
+                                 blocks.abs() * keep[..., None, None],
+                                 x.abs())
+    assert bool(((got - want).abs() <= 2 * kb * bs * 2.0 ** -24 * scale)
+                .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,kb,bs", [(128, 128, 32), (3, 10, 128),
+                                     (700, 4, 16)])
+def test_cuda_bsr_spmv_split_is_bit_identical(cuda_device, r, kb, bs):
+    """The split design sums its slices in slice order, without float
+    atomics: two runs give the same bits, with many slices and with one."""
+    bc, blocks, x = _bsr_inputs(r + kb, r, kb, bs, 16, cuda_device)
+    tspmv.reset_launches()
+    first = tspmv.bsr_spmv(bc, blocks, x)
+    second = tspmv.bsr_spmv(bc, blocks, x)
+    torch.cuda.synchronize()
+    assert tspmv.PATHS == {"rowblock": 0, "split": 2}
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -224,6 +278,18 @@ def test_cuda_leaf_wrappers_check_their_inputs(cuda_device):
         tspmv.bsr_spmv(bc.cpu(), blocks, torch.zeros(16, device=cuda_device))
     with pytest.raises(ValueError, match="expected a tensor on"):
         tspmv.bsr_spmv(bc, blocks, torch.zeros(16))
+    # an x that starts 4 bytes into its storage takes the rowblock kernel
+    bc, blocks, x = _bsr_inputs(5, 2, 3, 16, 4, cuda_device)
+    xu = torch.zeros(x.numel() + 1, device=cuda_device)[1:]
+    xu.copy_(x)
+    tspmv.reset_launches()
+    got = tspmv.bsr_spmv(bc, blocks, xu)
+    torch.cuda.synchronize()
+    assert tspmv.PATHS == {"rowblock": 1, "split": 0}
+    _no_tf32()
+    assert bool(((got - tspmv.plain_bsr_spmv(bc, blocks, x)).abs()
+                 <= 2 * 3 * 16 * 2.0 ** -24
+                 * tspmv.plain_bsr_spmv(bc, blocks.abs(), x.abs())).all())
 
 
 # ---------------------------------------------------------------------------
@@ -353,40 +419,66 @@ SMEM_LIMIT = 232_448      # shared memory one block may take on an H100
 @pytest.mark.parametrize("s", [1, 100, 4096])
 @pytest.mark.parametrize("hd", list(range(8, 129, 8)))
 def test_flash_launch_plan(hd, s, dtype):
-    """bf16 at every hd that is a multiple of 8 takes wgmma, float32 and
-    unaligned bases the simt kernel; the key tile is TILE (the plain
-    version's), one grid axis is BH and the other's q tiles cover S once,
-    and the block fits the card's shared memory. (The C launchers refuse
-    a plan that differs from the geometry they launch:
+    """bf16 at every hd that is a multiple of 8 takes wgmma, float32 the
+    blocked kernel, unaligned bases the simt kernel; the key tile is TILE
+    (the plain version's), one grid axis is BH and the other's q tiles
+    cover S once, and the block fits the card's shared memory. (The C
+    launchers refuse a plan that differs from the geometry they launch:
     ``test_cuda_kernels_refuse_a_plan_they_do_not_launch``.)"""
     dt = getattr(torch, dtype)
     plan = tflash.launch_plan(6, s, hd, dt)
-    assert plan.path == ("wgmma" if dtype == "bfloat16" else "simt")
+    assert plan.path == ("wgmma" if dtype == "bfloat16" else "blocked")
     for p in (plan, tflash.launch_plan(6, s, hd, dt, aligned=False)):
-        q_rows, keys, width = p.tiles
-        assert keys == tflash.TILE
-        assert p.smem_bytes <= SMEM_LIMIT and p.stages >= 1
-        heads, q_tiles = p.grid[:2] if p.path == "wgmma" else p.grid[1::-1]
-        assert heads == 6 and p.grid[2] == 1
-        assert (q_tiles - 1) * q_rows < s <= q_tiles * q_rows
-        if p.path == "wgmma":      # 64-row consumer warpgroups + a producer
-            assert q_rows % 64 == 0 and p.threads == 128 * (q_rows // 64 + 1)
-            assert width in (64, 128) and hd <= width < hd + 64
-        else:
-            assert (q_rows, width) == (tflash.TILE, hd)
+        _check_flash_plan(p, 6, s, hd)
     assert p.path == "simt"
+
+
+def _check_flash_plan(p, bh, s, hd):
+    """Properties every flash plan holds, whatever its design."""
+    q_rows, keys, width = p.tiles
+    assert keys == tflash.TILE
+    assert p.smem_bytes <= SMEM_LIMIT and p.stages >= 1
+    heads, q_tiles = p.grid[:2] if p.path != "simt" else p.grid[1::-1]
+    assert heads == bh and p.grid[2] == 1
+    assert (q_tiles - 1) * q_rows < s <= q_tiles * q_rows
+    if p.path == "wgmma":      # 64-row consumer warpgroups + a producer
+        assert q_rows % 64 == 0 and p.threads == 128 * (q_rows // 64 + 1)
+        assert width in (64, 128) and hd <= width < hd + 64
+    elif p.path == "blocked":  # 16 x 16 threads of 8 x 4 logits each
+        assert (q_rows, width, p.threads, p.stages) == (128, hd, 256, 2)
+        assert q_rows * keys == 32 * p.threads
+    else:
+        assert (q_rows, width) == (tflash.TILE, hd)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_launch_plan_picks_blocked_exactly_for_float32_off_4(dtype):
+    """The blocked design is taken exactly for float32 with hd % 4 == 0 at
+    aligned bases (its 16-byte copies and loads need both), at every hd
+    from 1 to 128; every plan keeps the common properties at a ragged
+    S."""
+    dt = getattr(torch, dtype)
+    for hd in range(1, tflash.MAX_HEAD_DIM + 1):
+        for aligned in (True, False):
+            p = tflash.launch_plan(3, 333, hd, dt, aligned=aligned)
+            assert (p.path == "blocked") == (
+                dtype == "float32" and hd % 4 == 0 and aligned), hd
+            _check_flash_plan(p, 3, 333, hd)
 
 
 @pytest.mark.parametrize("hd", [1, 20, 36, 100, 127])
 def test_flash_launch_plan_off_the_tma_widths(hd):
     """bf16 with hd off a multiple of 8 (a TMA row stride must be a
     multiple of 16 bytes), or at an unaligned address, stays on the simt
-    kernel, as float32 does at any width."""
-    bf16 = torch.bfloat16
+    kernel; float32 takes the blocked kernel at these widths where they
+    are multiples of 4, and the simt kernel off 4 or unaligned."""
+    bf16, f32 = torch.bfloat16, torch.float32
     assert tflash.launch_plan(2, 300, hd, bf16).path == "simt"
     assert tflash.launch_plan(2, 300, hd, bf16, aligned=False).path == "simt"
     assert tflash.launch_plan(2, 300, 64, bf16, aligned=False).path == "simt"
-    assert tflash.launch_plan(2, 300, hd, torch.float32).path == "simt"
+    assert tflash.launch_plan(2, 300, hd, f32).path == (
+        "blocked" if hd % 4 == 0 else "simt")
+    assert tflash.launch_plan(2, 300, hd, f32, aligned=False).path == "simt"
     with pytest.raises(TypeError):
         tflash.launch_plan(2, 300, 64, torch.float16)
 
@@ -442,6 +534,44 @@ def test_gmm_launch_plan_refuses():
         tgmm.launch_plan(24, 64, 128, 12, torch.float32)
     with pytest.raises(TypeError):
         tgmm.launch_plan(256, 64, 128, 64, torch.float64)
+
+
+@pytest.mark.parametrize("bs", [1, 6, 16, 30, 32, 128, 256])
+def test_bsr_launch_plan(bs):
+    """The split design is taken exactly for BS a multiple of 4 at
+    aligned bases; its slices cover Kb, none empty (Kb below the slice
+    count and Kb = 1 included), and give the card at least
+    TARGET_BLOCKS blocks wherever Kb allows; the rowblock plan has one
+    block a row block; both fit the card's shared memory."""
+    for r, kb, aligned in itertools.product(
+            [1, 3, 50, 128, 527, 528, 2048], [0, 1, 2, 7, 20, 128],
+            [True, False]):
+        p = tspmv.launch_plan(r, kb, bs, aligned=aligned)
+        assert (p.path == "split") == (bs % 4 == 0 and aligned)
+        assert p.threads == 256 and p.stages == 1
+        assert p.smem_bytes <= SMEM_LIMIT and p.grid[1:] == (1, 1)
+        if p.path == "rowblock":
+            assert p.grid[0] == r and p.tiles == (bs, kb, bs)
+            continue
+        splits = p.grid[0] // r
+        assert p.grid[0] == r * splits and splits == tspmv.n_splits(r, kb)
+        assert p.tiles == (tspmv.SPLIT_ROWS, -(-kb // splits), bs)
+        assert 1 <= splits <= max(kb, 1)
+        bounds = [s * kb // splits for s in range(splits + 1)]
+        assert bounds[0] == 0 and bounds[-1] == kb
+        if kb:
+            assert all(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+        assert r * splits >= tspmv.TARGET_BLOCKS or splits == max(kb, 1)
+        assert splits == 1 or r * splits // 2 < tspmv.TARGET_BLOCKS
+
+
+def test_bsr_takes_the_plain_version_on_cpu():
+    bc, blocks, x = _bsr_inputs(0, 3, 2, 8, 4, "cpu")
+    tspmv.reset_launches()
+    assert torch.equal(tspmv.bsr_spmv(bc, blocks, x),
+                       tspmv.plain_bsr_spmv(bc, blocks, x))
+    assert tspmv.LAUNCHES == {"bsr_spmv": 0}
+    assert not any(tspmv.PATHS.values())
 
 
 # (T, D, F, E, rt, ft, dtype): the CPU tier's shapes, rt = 8 / 32 / 64,
@@ -527,7 +657,9 @@ def test_cuda_gmm_checks_its_inputs(cuda_device):
 
 # (BH, S, hd, dtype, causal): one causal tile, ragged S, hd off 16, hd 128;
 # then bf16 on wgmma at hd 64 / 96 / 128 and S 128 / 300 / 1024, causal
-# and not, and bf16 with hd off 8 (simt)
+# and not, and bf16 with hd off 8 (simt); then float32 on the blocked
+# kernel at a ragged S past one 128-row tile, hd 4 / 100 / 128, non-causal
+# and S = 1, and float32 with hd off 4 (simt)
 FLASH_CUDA_CASES = [(4, 128, 64, "float32", True), (4, 128, 64, "float32",
                                                     False),
                     (4, 64, 128, "float32", True), (2, 100, 80, "float32",
@@ -538,7 +670,14 @@ FLASH_CUDA_CASES = [(4, 128, 64, "float32", True), (4, 128, 64, "float32",
                     ] + [(2, s, hd, "bfloat16", causal) for hd in (64, 96, 128)
                          for s in (128, 300, 1024) for causal in (True, False)
                          ] + [(2, 100, 20, "bfloat16", True),
-                              (1, 1, 8, "bfloat16", True)]
+                              (1, 1, 8, "bfloat16", True)
+                              ] + [(2, 300, 128, "float32", True),
+                                   (3, 200, 4, "float32", True),
+                                   (2, 300, 100, "float32", False),
+                                   (2, 1000, 128, "float32", False),
+                                   (1, 1, 4, "float32", False),
+                                   (2, 100, 30, "float32", True),
+                                   (2, 129, 7, "float32", False)]
 
 
 @pytest.mark.cuda
@@ -557,6 +696,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     design = tflash.launch_plan(bh, s, hd, q.dtype).path
     assert tflash.PATHS[design] == 1 == sum(tflash.PATHS.values())
     assert design == ("wgmma" if dtype == "bfloat16" and hd % 8 == 0
+                      else "blocked" if dtype == "float32" and hd % 4 == 0
                       else "simt")
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = tflash.error_bound(q, k, v, causal, want)
@@ -591,6 +731,17 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
     want = tflash.plain_flash_attention(qu, qu, qu)
     assert bool(((got.float() - want.float()).abs()
                  <= tflash.error_bound(qu, qu, qu, True, want)).all())
+    # so does a float32 view that starts 4 bytes into its storage
+    buf = torch.randn(2 * 200 * 64 + 1, device=cuda_device)
+    qu = buf[1:].view(2, 200, 64)
+    tflash.reset_launches()
+    got = tflash.flash_attention(qu, qu, qu)
+    torch.cuda.synchronize()
+    assert tflash.PATHS["simt"] == 1
+    _no_tf32()
+    want = tflash.plain_flash_attention(qu, qu, qu)
+    assert bool(((got - want).abs()
+                 <= tflash.error_bound(qu, qu, qu, True, want)).all())
 
 
 @pytest.mark.cuda
@@ -598,12 +749,12 @@ def test_cuda_kernels_refuse_a_plan_they_do_not_launch(cuda_device):
     """The C launchers compute their own geometry and refuse a launch plan
     that differs from it in any field, so ``launch_plan`` (checked on the
     CPU) is what runs on the card: ``chip_smoke.plans_refused`` launches
-    every design of gmm (4) and flash attention (3) with its own plan and
-    with each of the plan's 7 fields altered."""
+    every design of gmm (4), flash attention (4) and the BSR SpMV (2) with
+    its own plan and with each of the plan's 7 fields altered."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     try:
         import chip_smoke
     finally:
         sys.path.pop(0)
-    assert chip_smoke.plans_refused(cuda_device) == 7 * 7
+    assert chip_smoke.plans_refused(cuda_device) == 10 * 7
 
