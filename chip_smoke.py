@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bfs-rounds [SRC]   # BFS flat 64's round only
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -17,11 +18,23 @@ script exits non-zero with no result line:
 2. host setup: RMAT-22 (numpy), its CSR and the packing onto 64 shards;
 3. kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes and at edge cases, with times, bounds and library
-   yardsticks: the three route kernels and the histogram kernel; the
-   BSR SpMV kernels at edge cases on both designs (split, rowblock: an
-   out-of-range block column, R = 1, Kb off the slice count, an
-   unaligned x), the split design bit-identical over two runs, and at a
-   synthetic shape (its row is timed in phase 9);
+   yardsticks: the bucket scatter on both designs (staged, also on
+   inputs 4 bytes off alignment; ranked on a payload ``WIDE_D`` wide,
+   the input it serves) and the rank kernel, bit-identical at edge cases
+   (1024 buckets, cap 1 and cap >= N, N = 0 and off the tile, drops) and
+   at the flat BFS round, staged over two runs; the reduce on both
+   designs (private; atomic off alignment)
+   with whole, fractional and NaN payloads (a slot that received {+NaN,
+   5} reads +inf under min, {-NaN, 5} reads 0 under store), n_local at
+   the private threshold and one past, timed by min, store and add at
+   the flat BFS / PageRank round and by add at the routed histogram,
+   beside ``scatter_reduce_``; a grid of shapes on both designs of each
+   (scatter N x S: staged at D 1, ranked at ``WIDE_D`` where its slots
+   fit; reduce n_local) that sets the private threshold; the
+   histogram kernel; the BSR SpMV kernels at edge cases on both designs
+   (split, rowblock: an out-of-range block column, R = 1, Kb off the
+   slice count, an unaligned x), the split design bit-identical over two
+   runs, and at a synthetic shape (its row is timed in phase 9);
 4. BFS on RMAT-22, flat (64 shards) and pod/portal (8 x 8): equal to the
    numpy oracle, no drops, bit-identical to the plain-torch path
    (``route_impl="sort"``), every kernel launched, TEPS and the
@@ -65,11 +78,18 @@ script exits non-zero with no result line:
    names); the bf16 gmm and the float32 flash also on the simt kernels,
    through inputs that start 2 or 4 bytes off a 16-byte boundary. The
    gmm, flash and BSR C entry points must refuse a launch plan altered
-   in any field.
+   in any field, and so must the bucket-scatter and reduce entry points
+   (both designs each).
 
 Each path of phases 4-7, 9, 10 and 11 runs with every kernel's launch
 count set to 0 just before it and read just after; the kernel table
-sums them.
+sums them. Each app and MoE path asserts from the route wrappers'
+``PATHS`` that the scatter ran ``staged`` only, and the reduce
+``atomic`` (BFS, PageRank: n_local 65,536) or ``private`` (the routed
+histogram: 64). No path launches the rank kernel any more (the staged
+scatter ranks in its own launches): its row carries the paths' count,
+which must be 0, with ``on_path`` false and ``ranked_on_path_by`` naming
+the staged kernels that rank on the paths.
 The line before the last is the JSON kernel table (the gmm row carries
 its bf16 run under ``bf16_*`` keys, the flash row its float32 run under
 ``f32_*``; ``design`` and ``f32_design`` on the BSR and flash rows name
@@ -110,8 +130,11 @@ REPLACES = {"bucket_rank": "src/repro/kernels/route.py:120",
 # substrings of each wrapper's CUDA kernels, for the profiler's table
 KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
                                 "rank_kernel"),
-                "bucket_scatter": ("fill_kernel", "scatter_kernel"),
+                "bucket_scatter": ("fill_kernel", "scatter_kernel",
+                                   "staged_count_kernel", "staged_scan_kernel",
+                                   "staged_fill_kernel", "staged_place_kernel"),
                 "reduce_received": ("reduce_init_kernel", "reduce_kernel",
+                                    "reduce_private_kernel",
                                     "reduce_finish_kernel"),
                 "histogram": ("hist_kernel",),
                 "bsr_spmv": ("bsr_spmv_kernel", "bsr_split_kernel",
@@ -123,9 +146,11 @@ KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
 #: libraries whose kernels must use the tensor cores' wgmma (HGMMA in SASS)
 WGMMA_LIBS = ("gmm", "flash_attention")
 #: kernels that must not spill (``-Xptxas -v``): the register-blocked ones
-NO_SPILL = ("gmm_blocked_kernel", "flash_blocked_kernel", "bsr_split_kernel")
-#: designs each of ``plans_refused``'s launches covers: gmm 4, flash 4, BSR 2
-PLAN_DESIGNS = 10
+NO_SPILL = ("gmm_blocked_kernel", "flash_blocked_kernel", "bsr_split_kernel",
+            "staged_place_kernel", "reduce_private_kernel")
+#: designs each of ``plans_refused``'s launches covers: bucket scatter 2,
+#: reduce 2, gmm 4, flash 4, BSR 2
+PLAN_DESIGNS = 14
 CARD = ("cuda", 0)
 SCALE, SMALL_SCALE = 22, 18        # RMAT scales of the main and small graphs
 HIST_N, HIST_BINS = 1 << 28, 4096
@@ -142,6 +167,18 @@ MOE_PACKAGINGS = [  # (label, fabric shape, axis names, MeshInfo options)
     ("two-stage (pod 2, data 1, expert 4, tp 2)", (2, 1, 4, 2),
      ("pod", "data", "expert", "tp"), {"pod_axis": "pod"})]
 FLASH_SHAPE = (2, 16, 4096, 128)   # B, H, S, hd: OLMoE's attention widths
+#: the route kernels' grid (phase 3): scatter tasks a shard (and E_max)
+#: by shards; the reduce's stream (shards, entries a shard) by n_local,
+#: up to the largest n_local whose one private copy fills a block's
+#: shared memory (58,112) and BFS's 65,536 past it
+GRID_TASKS, GRID_SHARDS = (1 << 16, 1 << 20), (8, 64)
+GRID_STREAM = (64, 1 << 23)
+GRID_LOCALS = (64, 1024, 8192, 16384, 32768, 58112, 65536)
+#: a payload too wide for the staged scatter's tile staging at any
+#: bucket count: what takes the ranked design; the grid runs it where
+#: its payload and slots take at most GRID_WIDE_BYTES
+WIDE_D = 32
+GRID_WIDE_BYTES = 16 << 30
 
 
 def log(*parts):
@@ -191,11 +228,14 @@ def read_launches():
 
 class MainPath:
     """One main path's run: every launch count set to 0 on entry, read on
-    exit into ``self.launches``; ``need`` names the kernels the path must
-    have launched."""
+    exit into ``self.launches`` (and the route wrappers' designs into
+    ``self.paths``); ``need`` names the kernels the path must have
+    launched, ``designs`` the only design each route wrapper may have run
+    (``{"bucket_scatter": "staged", ...}``)."""
 
-    def __init__(self, name, need, totals):
+    def __init__(self, name, need, totals, designs=None):
         self.name, self.need, self.totals = name, need, totals
+        self.designs = designs or {}
 
     def __enter__(self):
         import torch
@@ -207,12 +247,16 @@ class MainPath:
         import torch
         torch.cuda.synchronize()
         self.launches = read_launches()
+        from repro_torch.kernels import route
+        self.paths = {k: dict(v) for k, v in route.PATHS.items()}
         if kind is not None:
             return False
         missing = [k for k in self.need if not self.launches[k]]
         if missing:
             raise AssertionError(f"{self.name}: kernels never launched: "
                                  f"{missing} ({self.launches})")
+        for wrapper, want in self.designs.items():
+            ran_only(self.paths[wrapper], want, f"{self.name}: {wrapper}")
         for k, v in self.launches.items():
             self.totals[k] += v
         return False
@@ -284,7 +328,58 @@ def check_reduce(route, slot, val, n_local, integer_valued):
     return float(err.max()), float((err / scale.clamp(min=1e-30)).max())
 
 
+def off_alignment(t):
+    """A copy of ``t`` that starts one element (4 bytes, 1 for bool) into
+    its storage: the inputs that reach the ``atomic`` reduce; the scatter
+    takes its ``staged`` design on them as on aligned ones."""
+    flat = t.new_empty(t.numel() + 1)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+def nan_stream(slot, val, n_local):
+    """``val`` with a +NaN (sign bit clear) and a -NaN (set) in every
+    shard, at slots 0 and ``n_local - 1``."""
+    import torch
+    nans = torch.tensor([0x7FC00000, -0x00400000], dtype=torch.int32,
+                        device=val.device).view(torch.float32)
+    slot, val = slot.clone(), val.clone()
+    slot[:, :2] = torch.tensor([0, n_local - 1], dtype=torch.int32)
+    val[:, :2] = nans
+    return slot, val
+
+
+def check_reduce_nan(route, slot, val, n_local):
+    """A stream with NaNs of both signs against the plain version: min and
+    store equal (the plain version reads +inf and 0 where a NaN landed),
+    add NaN where the plain version has NaN and equal elsewhere (whole
+    numbers)."""
+    import torch
+    for op in route.REDUCE_OPS:
+        got = route.reduce_received(slot, val, n_local, op)
+        want = route.plain_reduce_received(slot, val, n_local, op)
+        if not (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got.nan_to_num(), want.nan_to_num())):
+            raise AssertionError(f"reduce_received {op} differs on a "
+                                 f"stream with NaNs")
+
+
+def reduce_designs(route, s, m, n_local):
+    """``(prep, design)`` for each design the reduce wrapper can take on
+    ``[s, m]`` inputs: ``prep`` leaves an input as it is (the plan's
+    design on aligned inputs) or copies it 4 bytes off alignment
+    (atomic)."""
+    return [(lambda t: t, route.reduce_received_plan(s, m, n_local).path),
+            (off_alignment, "atomic")]
+
+
 def kernel_edge_cases(route, device):
+    """The bucket scatter on both designs (staged at the case's payload,
+    on fresh inputs and on copies off alignment; ranked at a payload
+    ``WIDE_D`` wide) bit-identical to the plain version, the rank kernel
+    too; the reduce on both designs (private where the plan names it,
+    atomic off alignment), with whole-number, fractional and NaN
+    payloads; the NaN reads of the reference on both; n_local at the
+    private threshold and one past."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED)
@@ -292,28 +387,95 @@ def kernel_edge_cases(route, device):
         (1, 0, 4, 2, 1, 1, 0.9), (1, 1, 4, 2, 1, 1, 0.9),
         (7, 1031, 7, 5, 2, 1, 0.9), (64, 5003, 64, 9, 1, 1, 0.9),
         (3, 4097, 8, 1, 2, 3, 0.9), (7, 2048, 7, 3, 1, 1, 0.0),
-        (1, 3000, 1, 3000, 1, 1, 1.0), (64, 1031, 8, 2, 2, 1, 0.5)]
+        (1, 3000, 1, 3000, 1, 1, 1.0), (64, 1031, 8, 2, 2, 1, 0.5),
+        (2, 5003, 1024, 3, 2, 1, 0.9), (5, 12289, 37, 40, 2, 1, 0.6)]
     drops = 0
+    designs = set()
     for s, n, nb, cap, k, d, p in cases:
-        x, dest, valid, aux = rand_tasks(rng, s, n, nb, k, d, p, device)
-        drops += check_bucket(route, x, dest, valid, aux, nb, cap)
-        n_local = 3 * nb + 1
-        slot = torch.tensor(rng.integers(-1, n_local + 2, (s, n)),
-                            dtype=torch.int32, device=device)
-        whole = torch.tensor(rng.integers(-9, 10, (s, n)),
-                             dtype=torch.float32, device=device)
-        check_reduce(route, slot, whole, n_local, integer_valued=True)
-        check_reduce(route, slot, whole * 0.37, n_local, integer_valued=False)
-    if drops == 0:
-        raise AssertionError("edge cases never dropped")
+        for design, width, shifted in (("staged", d, False),
+                                       ("staged", d, True),
+                                       ("ranked", WIDE_D, False)):
+            x, dest, valid, aux = rand_tasks(rng, s, n, nb, k, width, p,
+                                             device)
+            if shifted:
+                x, dest, valid = map(off_alignment, (x, dest, valid))
+                aux = [off_alignment(a) for a in aux]
+            route.reset_launches()
+            drops += check_bucket(route, x, dest, valid, aux, nb, cap)
+            ran_only(route.PATHS["bucket_scatter"], design, "bucket_scatter")
+        locals_ = [3 * nb + 1]
+        if nb == 1024:
+            locals_ += [route.PRIVATE_MAX_LOCAL, route.PRIVATE_MAX_LOCAL + 1]
+        for n_local in locals_:
+            slot = torch.tensor(rng.integers(-1, n_local + 2, (s, n)),
+                                dtype=torch.int32, device=device)
+            whole = torch.tensor(rng.integers(-9, 10, (s, n)),
+                                 dtype=torch.float32, device=device)
+            for prep, design in reduce_designs(route, s, n, n_local):
+                route.reset_launches()
+                check_reduce(route, prep(slot), prep(whole), n_local,
+                             integer_valued=True)
+                check_reduce(route, prep(slot), prep(whole * 0.37), n_local,
+                             integer_valued=False)
+                if n >= 2:
+                    check_reduce_nan(route, *map(prep, nan_stream(
+                        slot, whole, n_local)), n_local)
+                if n:
+                    ran_only(route.PATHS["reduce_received"], design,
+                             "reduce_received")
+                designs.add(design)
+    if drops == 0 or designs != {"private", "atomic"}:
+        raise AssertionError(f"edge cases: {drops} drops, reduce designs "
+                             f"{designs}")
+    nan_reads(route, device)
     torch.cuda.synchronize()
     log(f"kernels: {len(cases)} edge cases bit-identical to the plain "
-        f"versions ({drops} drops exercised)")
+        f"versions on both scatter designs (staged, also 4 bytes off "
+        f"alignment; ranked at D {WIDE_D}), {drops} drops exercised; the "
+        f"reduce on both designs "
+        f"with whole, fractional and NaN payloads, n_local up to the "
+        f"private threshold {route.PRIVATE_MAX_LOCAL} and one past")
+
+
+def nan_reads(route, device):
+    """On both reduce designs: a slot that receives {+NaN, 5} reads +inf
+    under min, one that receives {-NaN, 5} reads 0 under store, in either
+    order, as the reference gives."""
+    import torch
+    slot = torch.tensor([[0, 0, 1, 1, 2, 2, 3]], dtype=torch.int32,
+                        device=device)
+    bits = [0x7FC00000, 0x40A00000, 0x40A00000, 0x7FC00000, -0x00400000,
+            0x40A00000, 0x40000000]          # +NaN, 5, 5, +NaN, -NaN, 5, 2
+    val = torch.tensor([bits], dtype=torch.int32,
+                       device=device).view(torch.float32)
+    inf = float("inf")
+    for prep, design in reduce_designs(route, *slot.shape, 4):
+        sl, v = prep(slot), prep(val)
+        route.reset_launches()
+        got_min = route.reduce_received(sl, v, 4, "min")[0].tolist()
+        got_store = route.reduce_received(sl, v, 4, "store")[0].tolist()
+        ran_only(route.PATHS["reduce_received"], design, "reduce_received")
+        if got_min != [inf, inf, inf, 2.0] or got_store != [0, 0, 0, 2.0]:
+            raise AssertionError(f"reduce_received {design}: NaN reads "
+                                 f"min {got_min}, store {got_store}")
+
+
+def scatter_bytes(s, n, d, k, slots):
+    """The bytes ``bucket_scatter`` must move: x, dest, valid and the aux
+    columns read and task_slot written once a task, xb and the aux slots
+    written once, n_drop."""
+    return s * n * (4 * d + 4 + 1 + 4 * k + 4) + slots * (4 * d + 4 * k) + \
+        s * 4
 
 
 def main_shape_kernels(route, routing, setup, device):
     """The kernels at the flat BFS round's shapes: 64 shards, N = E_max,
-    cap from capacity factor 4, every edge an active task."""
+    cap from capacity factor 4, every edge an active task. The scatter
+    (staged, also through views 4 bytes off alignment; the ranked design
+    is timed in :func:`route_grid` at the payload it serves); the reduce
+    of that round's stream (n_local 65,536: the atomic design) by min and
+    store (BFS, SSSP) and by add (PageRank's flat round has the same
+    stream shape), each with ``scatter_reduce_`` beside it."""
     import numpy as np
     import torch
     from repro_torch.core.queues import QueueConfig
@@ -326,15 +488,35 @@ def main_shape_kernels(route, routing, setup, device):
     valid = dst >= 0
     dest = (dst.clamp(min=0) % s).to(torch.int32)
     aux = [(dst.clamp(min=0) // s).to(torch.int32)]
+    route.reset_launches()
     drops = check_bucket(route, x, dest, valid, aux, s, cap)
+    ran_only(route.PATHS["bucket_scatter"], "staged", "bucket_scatter")
     if drops:
         raise AssertionError(f"{drops} drops at the main shape")
-    xb, ints, _, _ = route.plain_bucket_scatter(x, dest, valid, aux, s, cap)
+    xu, du, vu = off_alignment(x), off_alignment(dest), off_alignment(valid)
+    au = [off_alignment(aux[0])]
+    route.reset_launches()
+    check_bucket(route, xu, du, vu, au, s, cap)
+    ran_only(route.PATHS["bucket_scatter"], "staged", "bucket_scatter")
+    del xu, du, vu, au
+    first = route.bucket_scatter(x, dest, valid, aux, s, cap)
+    second = route.bucket_scatter(x, dest, valid, aux, s, cap)
+    if not all(torch.equal(a, b) for a, b in zip(
+            (first[0], *first[1], *first[2:]),
+            (second[0], *second[1], *second[2:]))):
+        raise AssertionError("bucket_scatter staged: two runs differ at the "
+                             "main shape")
+    xb, ints = first[0], first[1]
+    del first, second
     recv_val, (recv_slot,) = routing.fused_all_to_all(xb, ints, (s,), 0)
+    del xb, ints
     recv_val = recv_val[..., 0].contiguous()
+    design = route.reduce_received_plan(*recv_slot.shape, n_local).path
+    route.reset_launches()
     err, rel = check_reduce(route, recv_slot, recv_val, n_local,
                             integer_valued=False)
-    log(f"kernel reduce_received at the main shape: min and store "
+    ran_only(route.PATHS["reduce_received"], design, "reduce_received")
+    log(f"kernel reduce_received at the main shape ({design}): min and store "
         f"bit-identical; add max |err| {err} = {rel:.3e} of the slot's "
         f"sum of |v| (f32 atomics in another order)")
     ones = torch.ones_like(recv_val)
@@ -353,43 +535,91 @@ def main_shape_kernels(route, routing, setup, device):
         torch.arange(s, device=device)[:, None] * n_local + recv_slot.long(),
         s * n_local + torch.arange(m, device=device).view(s, -1)).reshape(-1)
     flat_val = recv_val.reshape(-1)
-    y0 = torch.full((s * n_local + m,), float("inf"), device=device)
+    y0 = torch.empty(s * n_local + m, device=device)
+    init = {"amin": float("inf"), "amax": float("-inf"), "sum": 0.0}
 
-    def library_call():
-        y0.scatter_reduce_(0, flat_idx, flat_val, "amin")
+    def library_call(how):
+        # the outputs reset (16 MB), not the spare cells: they only absorb
+        # the empty entries
+        def call():
+            y0[:s * n_local].fill_(init[how])
+            y0.scatter_reduce_(0, flat_idx, flat_val, how)
+        return call
 
-    for name, kern, plain, n_bytes, lib in [
-            ("bucket_rank",
-             lambda: route.bucket_rank(dest, valid, s),
-             lambda: route.plain_bucket_rank(dest, valid, s),
-             tasks * (4 + 1 + 4), None),
-            ("bucket_scatter",
-             lambda: route.bucket_scatter(x, dest, valid, aux, s, cap),
-             lambda: route.plain_bucket_scatter(x, dest, valid, aux, s, cap),
-             tasks * (4 + 4 + 1 + 4 + 4) + slots * (4 + 4) + s * 4, None),
-            ("reduce_received",
-             lambda: route.reduce_received(recv_slot, recv_val, n_local,
-                                           "min"),
-             lambda: route.plain_reduce_received(recv_slot, recv_val,
-                                                 n_local, "min"),
-             m * (4 + 4) + s * n_local * 4, library_call)]:
-        rows[name] = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": 0,
-            "max_abs_err": err if name == "reduce_received" else 0.0,
-            "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
-            "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
-            "library_ms": cuda_ms(lib, 5) if lib else None}
-        r = rows[name]
-        log(f"kernel {name}: S={s} N={e_max} cap={cap}: {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms (no yardstick), bound "
-            f"{r['bound_ms']:.4f} ms ({n_bytes} B / 3.35 TB/s)"
-            + (f", scatter_reduce_ {r['library_ms']:.4f} ms" if lib else ""))
-    if not torch.equal(y0[:s * n_local].view(s, n_local),
-                       route.reduce_received(recv_slot, recv_val, n_local,
-                                             "min")):
-        raise AssertionError("the scatter_reduce_ yardstick computes "
-                             "another function")
+    n_bytes = scatter_bytes(s, e_max, 1, 1, slots)
+    reduce_bytes = m * (4 + 4) + s * n_local * 4
+    route.reset_launches()
+    rank_row = {
+        "name": "bucket_rank", "route": "cuda",
+        "source": SOURCES["bucket_rank"], "replaces": REPLACES["bucket_rank"],
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: route.bucket_rank(dest, valid, s), 5),
+        "plain_ms": cuda_ms(lambda: route.plain_bucket_rank(dest, valid, s),
+                            2),
+        "bound_ms": bound_ms(tasks * (4 + 1 + 4)), "bound_by": "bytes",
+        "library_ms": None,
+        # the staged scatter ranks in its own launches: no path launches
+        # this kernel, and its launches are the paths' count, 0
+        "on_path": False,
+        "ranked_on_path_by": "bucket_scatter/staged (staged_count_kernel, "
+                             "staged_scan_kernel, staged_place_kernel)"}
+    rows["bucket_rank"] = rank_row
+    log(f"kernel bucket_rank: S={s} N={e_max}: {rank_row['ms']:.4f} ms, "
+        f"plain {rank_row['plain_ms']:.4f} ms (no yardstick), bound "
+        f"{rank_row['bound_ms']:.4f} ms ({tasks * 9} B / 3.35 TB/s)")
+
+    route.reset_launches()
+    r = row("bucket_scatter", 0.0,
+            cuda_ms(lambda: route.bucket_scatter(x, dest, valid, aux, s, cap),
+                    5),
+            cuda_ms(lambda: route.plain_bucket_scatter(x, dest, valid, aux, s,
+                                                       cap), 2),
+            n_bytes, None)
+    ran_only(route.PATHS["bucket_scatter"], "staged", "bucket_scatter")
+    r["design"] = "staged"
+    rows["bucket_scatter"] = r
+    log(f"kernel bucket_scatter: S={s} N={e_max} cap={cap}: staged "
+        f"{r['ms']:.4f} ms ({r['ms'] / r['bound_ms']:.3f}x its bound), "
+        f"plain {r['plain_ms']:.4f} ms (no yardstick), bound "
+        f"{r['bound_ms']:.4f} ms ({n_bytes} B / 3.35 TB/s); bit-identical "
+        f"to the plain version, also 4 bytes off alignment, and over two "
+        f"runs")
+
+    times = {}
+    route.reset_launches()
+    for op, how in (("min", "amin"), ("store", "amax"), ("add", "sum")):
+        times[op] = (
+            cuda_ms(lambda: route.reduce_received(recv_slot, recv_val,
+                                                  n_local, op), 5),
+            cuda_ms(lambda: route.plain_reduce_received(recv_slot, recv_val,
+                                                        n_local, op), 2),
+            cuda_ms(library_call(how), 5))
+        want = route.reduce_received(recv_slot, recv_val, n_local, op)
+        got = y0[:s * n_local].view(s, n_local)
+        if op == "min":
+            got = torch.where(torch.isfinite(got), got, float("inf"))
+        elif op == "store":
+            got = torch.where(torch.isfinite(got), got, 0.0)
+        if op != "add" and not torch.equal(got, want):
+            raise AssertionError(f"the scatter_reduce_ {how} yardstick "
+                                 f"computes another function")
+    ran_only(route.PATHS["reduce_received"], design, "reduce_received")
+    r = row("reduce_received", err, *times["min"][:2], reduce_bytes,
+            times["min"][2])
+    r["design"] = design
+    for op in ("store", "add"):
+        r[f"{op}_bfs_ms"], r[f"{op}_bfs_plain_ms"], \
+            r[f"{op}_bfs_library_ms"] = times[op]
+    rows["reduce_received"] = r
+    log(f"kernel reduce_received at the flat BFS / PageRank round: S={s} "
+        f"M={m // s} n_local={n_local}, {design} design: min "
+        f"{times['min'][0]:.4f} ms (scatter_reduce_ amin "
+        f"{times['min'][2]:.4f}), store {times['store'][0]:.4f} ms (amax "
+        f"{times['store'][2]:.4f}), add {times['add'][0]:.4f} ms (sum "
+        f"{times['add'][2]:.4f}); bound {r['bound_ms']:.4f} ms "
+        f"({reduce_bytes} B / 3.35 TB/s); plain min/store/add "
+        f"{times['min'][1]:.4f} / {times['store'][1]:.4f} / "
+        f"{times['add'][1]:.4f} ms (no yardstick)")
     return rows
 
 
@@ -441,7 +671,12 @@ def profile_kernels(fn, rounds):
             total / 1e3, wall_ms, top)
 
 
-ROUTE_KERNELS = ("bucket_rank", "bucket_scatter", "reduce_received")
+ROUTE_KERNELS = ("bucket_scatter", "reduce_received")
+#: the only designs the route wrappers may run on each path: staged on
+#: every path; the reduce's atomic at BFS's and PageRank's n_local 65,536,
+#: private at the routed histogram's 64
+STAGED_ATOMIC = {"bucket_scatter": "staged", "reduce_received": "atomic"}
+STAGED_PRIVATE = {"bucket_scatter": "staged", "reduce_received": "private"}
 
 
 def run_bfs(g, root, want, setup, layout, fabric, opts, totals):
@@ -449,7 +684,8 @@ def run_bfs(g, root, want, setup, layout, fabric, opts, totals):
     import torch
     from repro_torch.sparse.torch_apps import dcra_bfs
     torch.cuda.reset_peak_memory_stats()
-    with MainPath(f"BFS {layout}", ROUTE_KERNELS, totals) as path:
+    with MainPath(f"BFS {layout}", ROUTE_KERNELS, totals,
+                  STAGED_ATOMIC) as path:
         t0 = time.perf_counter()
         dist, stats = dcra_bfs(g, root, fabric, options=opts, setup=setup)
         torch.cuda.synchronize()
@@ -475,7 +711,7 @@ def run_bfs(g, root, want, setup, layout, fabric, opts, totals):
         f"{stats.messages.tolist()} drops=0 run_s={run_s:.4f} "
         f"TEPS={reached_edges / run_s:.4e} (reached edges {reached_edges}) "
         f"peak_mem_gb={peak_gb:.2f} launches={path.launches} "
-        f"plain-torch path bit-identical")
+        f"route designs {path.paths}; plain-torch path bit-identical")
     log_profile(f"bfs {layout}", per_round, device_ms, wall_ms, top)
 
 
@@ -527,7 +763,7 @@ def leaf_edge_cases(device):
             x = torch.zeros(x.numel() + 1, device=device)[1:].copy_(x)
         spmv.reset_launches()
         worst = max(worst, bsr_check(spmv, bc, blocks, x))
-        ran_only(spmv, design)
+        ran_only(spmv.PATHS, design, "bsr_spmv")
         # a column out of range reads a zero x tile: as the plain version
         # with that column at 0 and its block zero
         bc[0, 0] = ncb if r % 2 else -1
@@ -548,12 +784,12 @@ def leaf_edge_cases(device):
     return worst
 
 
-def ran_only(mod, want):
-    """Every launch since ``mod.reset_launches()`` ran the ``want``
-    design."""
-    if mod.PATHS[want] != sum(mod.PATHS.values()):
-        raise AssertionError(f"{mod.__name__}: expected the {want} design "
-                             f"only, ran {mod.PATHS}")
+def ran_only(paths, want, what):
+    """Every launch counted in ``paths`` (a wrapper's entry of ``PATHS``)
+    since the last reset ran the ``want`` design, and there was one."""
+    if not paths[want] or paths[want] != sum(paths.values()):
+        raise AssertionError(f"{what}: expected the {want} design only, "
+                             f"ran {paths}")
 
 
 def bsr_check(spmv, bc, blocks, x, got=None):
@@ -637,7 +873,7 @@ def bsr_row(spmv, bc, blocks, x):
     spmv.reset_launches()
     ratio = bsr_check(spmv, bc, blocks, x)
     got = spmv.bsr_spmv(bc, blocks, x)
-    ran_only(spmv, "split")
+    ran_only(spmv.PATHS, "split", "bsr_spmv")
     if not torch.equal(got, spmv.bsr_spmv(bc, blocks, x)):
         raise AssertionError(f"bsr_spmv split: two runs differ at R={r} "
                              f"Kb={kb}")
@@ -651,7 +887,7 @@ def bsr_row(spmv, bc, blocks, x):
     spmv.reset_launches()
     bsr_check(spmv, bc, blocks, xu)
     rowblock_ms = cuda_ms(lambda: spmv.bsr_spmv(bc, blocks, xu), 5)
-    ran_only(spmv, "rowblock")
+    ran_only(spmv.PATHS, "rowblock", "bsr_spmv")
     del xu
     log(f"kernel bsr_spmv at R={r} Kb={kb} BS={bs} Ncb={ncb}, design split "
         f"{spmv.launch_plan(r, kb, bs)}: max |err| {err} vs the plain "
@@ -712,8 +948,10 @@ def log_row(r, shape, n_bytes, library):
 
 def reduce_add_timed(routing, device, ids, rows):
     """``reduce_received`` add at the routed histogram's flat shape (64
-    shards, e_local = 2^22, cap from factor 2.0, n_local = 64), with
-    ``scatter_reduce_`` sum beside it; all three exact (whole numbers)."""
+    shards, e_local = 2^22, cap from factor 2.0, n_local = 64) on the
+    private design and, through views 4 bytes off alignment, the atomic
+    one, with ``scatter_reduce_`` sum beside them; all exact (whole
+    numbers)."""
     import torch
     from repro_torch.core.queues import QueueConfig
     from repro_torch.kernels import route
@@ -729,11 +967,20 @@ def reduce_add_timed(routing, device, ids, rows):
     if int(n_drop.sum()):
         raise AssertionError("drops at the routed histogram shape")
     m = recv_slot.numel()
-    got = route.reduce_received(recv_slot, recv_val, n_local, "add")
-    if not torch.equal(got, route.plain_reduce_received(
-            recv_slot, recv_val, n_local, "add")):
-        raise AssertionError("reduce_received add differs at the histogram "
-                             "shape")
+    want = route.plain_reduce_received(recv_slot, recv_val, n_local, "add")
+    su, vu = off_alignment(recv_slot), off_alignment(recv_val)
+    times = {}
+    for design, (sl, v) in (("private", (recv_slot, recv_val)),
+                            ("atomic", (su, vu))):
+        route.reset_launches()
+        if not torch.equal(route.reduce_received(sl, v, n_local, "add"),
+                           want):
+            raise AssertionError(f"reduce_received add ({design}) differs at "
+                                 f"the histogram shape")
+        times[design] = cuda_ms(lambda: route.reduce_received(
+            sl, v, n_local, "add"), 5)
+        ran_only(route.PATHS["reduce_received"], design, "reduce_received")
+    del su, vu
     flat_idx = torch.where(
         recv_slot >= 0,
         torch.arange(s, device=device)[:, None] * n_local + recv_slot.long(),
@@ -742,24 +989,154 @@ def reduce_add_timed(routing, device, ids, rows):
     y0 = torch.zeros(s * n_local + m, device=device)
 
     def library_call():
-        y0.zero_()
+        y0[:s * n_local].zero_()          # the outputs, not the spare cells
         y0.scatter_reduce_(0, flat_idx, flat_val, "sum")
 
     library_call()
-    if not torch.equal(y0[:s * n_local].view(s, n_local), got):
+    if not torch.equal(y0[:s * n_local].view(s, n_local), want):
         raise AssertionError("the scatter_reduce_ sum yardstick computes "
                              "another function")
     n_bytes = m * (4 + 4) + s * n_local * 4
     r = rows["reduce_received"]
-    r["add_ms"] = cuda_ms(lambda: route.reduce_received(
-        recv_slot, recv_val, n_local, "add"), 5)
+    r["add_ms"] = times["private"]
+    r["add_design"] = "private"
+    r["add_atomic_ms"] = times["atomic"]
     r["add_bound_ms"] = bound_ms(n_bytes)
+    r["add_plain_ms"] = cuda_ms(lambda: route.plain_reduce_received(
+        recv_slot, recv_val, n_local, "add"), 2)
     r["add_library_ms"] = cuda_ms(library_call, 5)
     log(f"kernel reduce_received add at the routed histogram shape: S={s} "
-        f"M={m // s} n_local={n_local}: {r['add_ms']:.4f} ms, bound "
+        f"M={m // s} n_local={n_local}: private {r['add_ms']:.4f} ms "
+        f"({r['add_ms'] / r['add_bound_ms']:.3f}x its bound), atomic "
+        f"(inputs 4 bytes off alignment) {r['add_atomic_ms']:.4f} ms, bound "
         f"{r['add_bound_ms']:.4f} ms ({n_bytes} B / 3.35 TB/s), "
-        f"scatter_reduce_ sum {r['add_library_ms']:.4f} ms; exact (whole "
-        f"numbers), equal to the plain version")
+        f"scatter_reduce_ sum {r['add_library_ms']:.4f} ms, plain "
+        f"{r['add_plain_ms']:.4f} ms (no yardstick); exact (whole numbers) "
+        f"on both designs, equal to the plain version")
+
+
+def route_grid(routing, device, e_max, rows):
+    """Both designs of each route kernel over a small grid of shapes, on
+    the card: the scatter at N in {2^16, 2^20, E_max} tasks a shard by S
+    in {8, 64} shards (n_buckets S, cap from factor 4, every task valid,
+    k 1), staged at D 1 (the paths' payload) and ranked at ``WIDE_D``
+    (the payload it serves) where that payload and its slots take at
+    most ``GRID_WIDE_BYTES``, each bit-identical to the plain version;
+    the ranked cell at S 8 and E_max is the table row's ``ranked_*``.
+    And the reduce of a stream of 64 shards x 2^23 entries (half empty,
+    the rest uniform over the outputs; whole-number values) into each of
+    ``GRID_LOCALS`` by add and by min, private launched with its own plan
+    wherever it fits a block (not at 65,536), atomic through views off
+    alignment. What sets ``route.PRIVATE_MAX_LOCAL``. Returns the grid,
+    also kept in the table rows."""
+    import torch
+    from repro_torch.core.queues import QueueConfig
+    from repro_torch.kernels import route
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels._launch import as_c
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    scatter = []
+    for s in GRID_SHARDS:
+        for n in (*GRID_TASKS, e_max):
+            cap = routing.resolve_flat_cap(QueueConfig.from_factor(4.0), "T3",
+                                           n, s, clamp=True)
+            slots = s * s * cap
+            dest = torch.randint(0, s, (s, n), generator=gen, device=device,
+                                 dtype=torch.int32)
+            valid = torch.ones(s, n, dtype=torch.bool, device=device)
+            aux = [torch.randint(0, 1 << 20, (s, n), generator=gen,
+                                 device=device, dtype=torch.int32)]
+            cell = {"s": s, "n": n, "cap": cap}
+            for design, d in (("staged", 1), ("ranked", WIDE_D)):
+                if 4 * d * (s * n + slots) > GRID_WIDE_BYTES:
+                    cell[f"{design}_ms"] = cell[f"{design}_bound_ms"] = None
+                    continue
+                x = torch.rand(s, n, d, generator=gen, device=device)
+                route.reset_launches()
+                check_bucket(route, x, dest, valid, aux, s, cap)
+                cell[f"{design}_ms"] = cuda_ms(
+                    lambda: route.bucket_scatter(x, dest, valid, aux, s, cap),
+                    3)
+                ran_only(route.PATHS["bucket_scatter"], design,
+                         "bucket_scatter")
+                cell[f"{design}_bound_ms"] = bound_ms(
+                    scatter_bytes(s, n, d, 1, slots))
+                del x
+            scatter.append(cell)
+            log(f"grid bucket_scatter S={s} N={n} cap={cap}: staged (D 1) "
+                f"{cell['staged_ms']:.4f} ms, bound "
+                f"{cell['staged_bound_ms']:.4f} ms; ranked (D {WIDE_D}) "
+                f"{cell['ranked_ms']} ms, bound {cell['ranked_bound_ms']} ms"
+                + ("" if cell["ranked_ms"] else
+                   f" (ranked: more than {GRID_WIDE_BYTES >> 30} GiB)"))
+            del dest, valid, aux
+            torch.cuda.empty_cache()
+    wide = next(c for c in scatter if c["s"] == 8 and c["n"] == e_max)
+    r = rows["bucket_scatter"]
+    r["ranked_ms"], r["ranked_bound_ms"] = wide["ranked_ms"], \
+        wide["ranked_bound_ms"]
+    r["ranked_shape"] = {"s": 8, "n": e_max, "d": WIDE_D, "k": 1,
+                         "cap": wide["cap"]}
+
+    s, m = GRID_STREAM
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = library("route")
+    reduce = []
+    for n_local in GRID_LOCALS:
+        q = torch.randint(0, n_local, (s, m), generator=gen, device=device,
+                          dtype=torch.int32)
+        slot = torch.where(torch.rand(s, m, generator=gen, device=device)
+                           < 0.5, -1, q).to(torch.int32)
+        del q
+        val = torch.randint(-9, 10, (s, m), generator=gen,
+                            device=device).float()
+        su, vu = off_alignment(slot), off_alignment(val)
+        plan = route.private_plan(s, m, n_local)
+        fits = plan.smem_bytes <= route.SMEM_LIMIT
+        cell = {"s": s, "m": m, "n_local": n_local,
+                "bound_ms": bound_ms(s * m * 8 + s * n_local * 4)}
+        for op in ("add", "min"):
+            want = route.plain_reduce_received(slot, val, n_local, op)
+            route.reset_launches()
+            if not torch.equal(route.reduce_received(su, vu, n_local, op),
+                               want):
+                raise AssertionError(f"grid: atomic {op} differs at "
+                                     f"n_local {n_local}")
+            cell[f"atomic_{op}_ms"] = cuda_ms(lambda: route.reduce_received(
+                su, vu, n_local, op), 3)
+            ran_only(route.PATHS["reduce_received"], "atomic",
+                     "reduce_received")
+            if not fits:
+                cell[f"private_{op}_ms"] = None
+                continue
+            y = torch.empty(s, n_local, device=device)
+
+            def private():
+                err = lib.dcra_reduce_received(
+                    slot.data_ptr(), val.data_ptr(), s, m, n_local,
+                    route.REDUCE_OPS.index(op), y.data_ptr(),
+                    as_c(plan, route.PATH_CODES["reduce_received"]["private"]),
+                    stream)
+                if err:
+                    raise RuntimeError(f"private reduce: CUDA error {err}")
+            private()
+            if not torch.equal(y, want):
+                raise AssertionError(f"grid: private {op} differs at "
+                                     f"n_local {n_local}")
+            cell[f"private_{op}_ms"] = cuda_ms(private, 3)
+        reduce.append(cell)
+        log(f"grid reduce_received S={s} M={m} n_local={n_local}: add "
+            f"private {cell['private_add_ms']} ms, atomic "
+            f"{cell['atomic_add_ms']:.4f} ms; min private "
+            f"{cell['private_min_ms']} ms, atomic {cell['atomic_min_ms']:.4f} "
+            f"ms; bound {cell['bound_ms']:.4f} ms"
+            + ("" if fits else " (private: one copy does not fit a block)"))
+        del slot, val, su, vu
+    torch.cuda.empty_cache()
+    rows["bucket_scatter"]["grid"] = scatter
+    rows["reduce_received"]["grid"] = reduce
+    return scatter, reduce
 
 
 # ---------------------------------------------------------------------------
@@ -858,7 +1235,8 @@ def run_pagerank(g, setup, device, totals):
     fab = Fabric.fake(64, device=device)
     opts = LaunchOptions(capacity_factor=4.0)
     torch.cuda.reset_peak_memory_stats()
-    with MainPath("PageRank flat 64", ROUTE_KERNELS, totals) as path:
+    with MainPath("PageRank flat 64", ROUTE_KERNELS, totals,
+                  STAGED_ATOMIC) as path:
         t0 = time.perf_counter()
         rank, st = dcra_pagerank(g, fab, options=opts, setup=setup)
         torch.cuda.synchronize()
@@ -888,7 +1266,7 @@ def run_pagerank(g, setup, device, totals):
         f"edges*iters/s={g.nnz * 20 / run_s:.4e} peak_mem_gb={peak_gb:.2f} "
         f"max|err|/max(rank): oracle {err:.3e}, plain-torch path "
         f"{err_plain:.3e}; oracle {t_ref:.2f} s (numpy); launches "
-        f"{path.launches}")
+        f"{path.launches}, route designs {path.paths}")
     log(f"pagerank flat 64: every vertex within its float32 error bound "
         f"(median bound / rank {float(np.median(bound / want)):.3e}, "
         f"computed in {t_bound:.2f} s); worst |err| / bound: oracle "
@@ -929,7 +1307,8 @@ def run_spmv(g, device, totals):
                                        device=device),
              LaunchOptions(pod_axis="pod", capacity_factor=2.0))]:
         torch.cuda.reset_peak_memory_stats()
-        with MainPath(f"SpMV {layout}", ROUTE_KERNELS, totals) as path:
+        with MainPath(f"SpMV {layout}", ROUTE_KERNELS, totals,
+                      {"bucket_scatter": "staged"}) as path:
             t0 = time.perf_counter()
             y, drops = dcra_spmv(g, x, fab, options=opts)
             torch.cuda.synchronize()
@@ -955,7 +1334,8 @@ def run_spmv(g, device, totals):
             f"max|err|/max|y|: oracle {err:.3e}, plain-torch path "
             f"{err_plain:.3e}; every row within its float32 bound, worst "
             f"|err| / bound: oracle {w_oracle:.3e}, plain-torch path "
-            f"{w_plain:.3e}; launches {path.launches}")
+            f"{w_plain:.3e}; launches {path.launches}, route designs "
+            f"{path.paths}")
 
 
 def run_histogram(els, device, totals):
@@ -966,17 +1346,20 @@ def run_histogram(els, device, totals):
     from repro_torch.sparse.options import LaunchOptions
     from repro_torch.sparse.torch_apps import dcra_histogram
     want = ref.histogram_ref(els, HIST_BINS)
-    for layout, fab, opts, need in [
-            ("1 shard", Fabric.fake(1, device=device), None, ("histogram",)),
-            ("flat 64", Fabric.fake(64, device=device), None, ROUTE_KERNELS),
+    for layout, fab, opts, need, designs in [
+            ("1 shard", Fabric.fake(1, device=device), None, ("histogram",),
+             None),
+            ("flat 64", Fabric.fake(64, device=device), None, ROUTE_KERNELS,
+             STAGED_PRIVATE),
             # stage 2 of the pod path holds n_intra * cap1 * factor slots a
             # shard: factor 1.25 keeps it at 0.4e9 slots (2.0: 1.1e9)
             ("pod 8x8", Fabric.virtual((8, 8), ("pod", "data"),
                                        device=device),
              LaunchOptions(pod_axis="pod", capacity_factor=1.25),
-             ROUTE_KERNELS)]:
+             ROUTE_KERNELS, STAGED_PRIVATE)]:
         torch.cuda.reset_peak_memory_stats()
-        with MainPath(f"histogram {layout}", need, totals) as path:
+        with MainPath(f"histogram {layout}", need, totals,
+                      designs) as path:
             t0 = time.perf_counter()
             counts, drops = dcra_histogram(els, HIST_BINS, fab, options=opts)
             torch.cuda.synchronize()
@@ -988,7 +1371,8 @@ def run_histogram(els, device, totals):
         log(f"histogram {len(els)} / {HIST_BINS} bins {layout}: equal to the "
             f"oracle, drops=0 run_s={run_s:.4f} elements/s="
             f"{len(els) / run_s:.4e} peak_mem_gb={peak_gb:.2f} launches "
-            f"{path.launches}")
+            f"{path.launches}" + (f", route designs {path.paths}" if designs
+                                  else ""))
 
 
 def small_apps(device):
@@ -1037,7 +1421,7 @@ def run_spmv_csr(device, totals, rows):
         t0 = time.perf_counter()
         y = ops.spmv_csr(g, x, bs=128, device=device).cpu().numpy()
         run_s = time.perf_counter() - t0
-    ran_only(spmv, "split")
+    ran_only(spmv.PATHS, "split", "bsr_spmv")
     bc, blocks = ops.csr_to_bsr(g, 128)
     kb = bc.shape[1]
     scale = np.bincount(g.row_of(), weights=np.abs(
@@ -1068,7 +1452,8 @@ def run_spmv_csr(device, totals, rows):
 # phase 10: the MoE layer of OLMoE-1B-7B
 # ---------------------------------------------------------------------------
 
-BUCKET_KERNELS = ("bucket_rank", "bucket_scatter")
+BUCKET_KERNELS = ("bucket_scatter",)
+STAGED = {"bucket_scatter": "staged"}
 
 
 def moe_setup(device):
@@ -1166,7 +1551,8 @@ def run_moe(device, totals):
         info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with MainPath(f"MoE {label}", BUCKET_KERNELS, totals) as path:
+        with MainPath(f"MoE {label}", BUCKET_KERNELS, totals,
+                      STAGED) as path:
             out, aux, stats = moe_dcra(params, x, cfg, info,
                                        return_stats=True)
             torch.cuda.synchronize()
@@ -1223,7 +1609,8 @@ def run_moe(device, totals):
     for label, shape, names, kw in MOE_PACKAGINGS:
         info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
         torch.cuda.empty_cache()
-        with MainPath(f"MoE {label} no-drop", BUCKET_KERNELS, totals) as path:
+        with MainPath(f"MoE {label} no-drop", BUCKET_KERNELS, totals,
+                      STAGED) as path:
             got, _, stats = moe_dcra(params, xs, cfg, info, queues=queues,
                                      return_stats=True)
         err = float((got - want).abs().max())
@@ -1246,7 +1633,8 @@ def run_moe(device, totals):
         cfg.d_model, generator=gen, device=device)
     for label, shape, names, kw in MOE_PACKAGINGS:
         info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
-        with MainPath(f"MoE {label} skewed", BUCKET_KERNELS, totals) as path:
+        with MainPath(f"MoE {label} skewed", BUCKET_KERNELS, totals,
+                      STAGED) as path:
             got, _, stats = moe_dcra(params, xk, cfg, info,
                                      return_stats=True)
         ref, _, ref_stats = moe_dcra(params, xk, cfg, info,
@@ -1363,7 +1751,7 @@ def gmm_flash_edge_cases(device):
         worst = max(worst, gmm_check(moe_gmm, rand(t, d, dtype=dt),
                                      rand(e, d, f, dtype=dt), gids, rt,
                                      ft)[1])
-        ran_only(moe_gmm, design)
+        ran_only(moe_gmm.PATHS, design, "gmm")
     try:
         moe_gmm.gmm(rand(128, 16), rand(2, 16, 192),
                     torch.zeros(1, dtype=torch.int32, device=device))
@@ -1379,7 +1767,7 @@ def gmm_flash_edge_cases(device):
             ones = moe_gmm.gmm(torch.ones(128, 16, device=device, dtype=dt),
                                torch.ones(2, 16, 64, device=device, dtype=dt),
                                ids.repeat_interleave(64 // rt), rt=rt)
-            ran_only(moe_gmm, design)
+            ran_only(moe_gmm.PATHS, design, "gmm")
             if not (bool((ones[:64] == 0).all())
                     and bool((ones[64:] == 16).all())):
                 raise AssertionError(f"gmm {design} {dt}: a group id out of "
@@ -1409,7 +1797,7 @@ def gmm_flash_edge_cases(device):
                 t.reshape(-1)).view(t.shape) for t in (q, k, v))
         flash.reset_launches()
         _, ratio, share = flash_check(flash, q, k, v, causal)
-        ran_only(flash, design)
+        ran_only(flash.PATHS, design, "flash_attention")
         worst_f, worst_share = max(worst_f, ratio), max(worst_share,
                                                         share or 0.0)
         const = flash.flash_attention(q, k, torch.ones_like(v), causal)
@@ -1429,14 +1817,14 @@ def gmm_flash_edge_cases(device):
 
 
 def plans_refused(device):
-    """Each design of gmm, flash attention and the BSR SpMV launched
-    through its C entry point with its own launch plan (must succeed) and
-    with each field of that plan altered (must be refused, nothing
-    launched): :data:`PLAN_DESIGNS` designs, 7 fields each. Returns the
-    count refused."""
+    """Each design of the bucket scatter, the reduce, gmm, flash attention
+    and the BSR SpMV launched through its C entry point with its own
+    launch plan (must succeed) and with each field of that plan altered
+    (must be refused, nothing launched): :data:`PLAN_DESIGNS` designs, 7
+    fields each. Returns the count refused."""
     import torch
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.kernels import moe_gmm, spmv
+    from repro_torch.kernels import moe_gmm, route, spmv
     from repro_torch.kernels._build import library
     from repro_torch.kernels._launch import as_c
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -1453,6 +1841,32 @@ def plans_refused(device):
                 raise AssertionError(f"{what}: launched a plan with field "
                                      f"{i} altered from {plan}")
             refused += 1
+    s, n, nb, cap = 2, 5000, 4, 3000
+    ints = torch.zeros(2, s, n, dtype=torch.int32, device=device)
+    valid = torch.ones(s, n, dtype=torch.bool, device=device)
+    slots = torch.empty(1, s, nb * cap, dtype=torch.int32, device=device)
+    task_slot = torch.empty(s, n, dtype=torch.int32, device=device)
+    n_drop = torch.empty(s, dtype=torch.int32, device=device)
+    scratch = torch.empty(s * (2 + 1) * nb, dtype=torch.int32, device=device)
+    for d in (1, WIDE_D):                   # staged, ranked
+        x = torch.ones(s, n, d, device=device)
+        xb = torch.empty(s, nb * cap, d, device=device)
+        plan = route.bucket_scatter_plan(s, n, d, 1, nb, cap)
+        each(plan, route.PATH_CODES["bucket_scatter"][plan.path],
+             lambda c: library("route").dcra_bucket_scatter(
+                 x.data_ptr(), ints[0].data_ptr(), valid.data_ptr(),
+                 ints[1].data_ptr(), ints[0].data_ptr(), s, n, d, 1, nb, cap,
+                 xb.data_ptr(), slots.data_ptr(), task_slot.data_ptr(),
+                 n_drop.data_ptr(), scratch.data_ptr(), c, stream),
+             f"bucket_scatter {plan.path}")
+    y = torch.empty(s, 64, device=device)
+    for aligned in (True, False):
+        plan = route.reduce_received_plan(s, n, 64, aligned)
+        each(plan, route.PATH_CODES["reduce_received"][plan.path],
+             lambda c: library("route").dcra_reduce_received(
+                 ints[0].data_ptr(), x.data_ptr(), s, n, 64, 0, y.data_ptr(),
+                 c, stream),
+             f"reduce_received {plan.path}")
     gids = torch.zeros(8, dtype=torch.int32, device=device)
     for dt, rt in ((torch.float32, 64), (torch.bfloat16, 64),
                    (torch.float32, 32), (torch.bfloat16, 32)):
@@ -1673,7 +2087,7 @@ def flash_f32_simt(flash, q, k, v, three):
     flash.reset_launches()
     _, ratio, _ = flash_check(flash, qu, ku, vu, True)
     ms = cuda_ms(lambda: flash.flash_attention(qu, ku, vu, True), 2)
-    ran_only(flash, "simt")
+    ran_only(flash.PATHS, "simt", "flash_attention")
     log(f"kernel flash_attention float32 on the simt kernel (q, k, v 4 bytes "
         f"off alignment): {ms:.4f} ms, {ratio:.4f} of the tolerance")
 
@@ -1777,6 +2191,56 @@ def kernel_resources(recs):
     return counts
 
 
+def bfs_rounds(src):
+    """``--bfs-rounds [SRC]``: BFS on RMAT-22, flat 64 shards at factor 4,
+    with the ``repro_torch`` package found under ``SRC`` (default: this
+    checkout's ``src``; another checkout's, to compare two trees on one
+    card): one run to build and warm, three timed on the host clock, and
+    one profiled, whose device time per round of each route wrapper's
+    kernels (:data:`KERNEL_NAMES`, old and new designs) it prints."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.sparse import datasets, ref
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.program import _graph_setup
+    from repro_torch.sparse.torch_apps import dcra_bfs
+    log(f"bfs-rounds: repro_torch from {Path(repro_torch.__file__).parent}")
+    g = datasets.rmat(SCALE, seed=SEED)
+    setup = _graph_setup(g, 64)
+    root = int(np.argmax(g.degrees()))
+    want = ref.bfs_ref(g, root)
+    fab = Fabric.fake(64, device=torch.device(*CARD))
+    opts = LaunchOptions(capacity_factor=4.0)
+
+    def run():
+        return dcra_bfs(g, root, fab, options=opts, setup=setup)
+    dist, stats = run()
+    if not np.array_equal(dist, want) or stats.total_drops:
+        raise AssertionError("bfs-rounds: BFS differs from the oracle")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_round, device_ms, wall_ms, top = profile_kernels(run, stats.rounds)
+    reached = int(g.degrees()[want >= 0].sum())
+    log(f"bfs-rounds flat 64: rounds {stats.rounds}, run_s "
+        f"{[round(t, 4) for t in times]}, TEPS {reached / min(times):.4e} "
+        f"(best of 3)")
+    log_profile("bfs-rounds flat 64", per_round, device_ms, wall_ms, top)
+    if per_round is None:
+        raise AssertionError("bfs-rounds: the profiler saw no device time")
+    route_ms = sum(per_round[k] for k in ("bucket_rank", "bucket_scatter",
+                                          "reduce_received"))
+    log(f"bfs-rounds flat 64: route kernels {route_ms:.4f} ms a round")
+    return 0
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
     return time.perf_counter()
@@ -1795,6 +2259,8 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside the script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--bfs-rounds"]:
+        return bfs_rounds(sys.argv[2] if len(sys.argv) > 2 else ROOT / "src")
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import routing
@@ -1852,6 +2318,7 @@ def main() -> int:
     reduce_add_timed(routing, device, ids, rows)
     del ids
     torch.cuda.empty_cache()
+    route_grid(routing, device, setup[-1], rows)
     t0 = phase("3 (kernels vs plain)", t0)
 
     # ---- 4: BFS on RMAT-22 -------------------------------------------------
@@ -1897,9 +2364,13 @@ def main() -> int:
         rows[k]["launches"] = totals[k]
     for k in WGMMA_LIBS:
         rows[k]["hgmma"] = hgmma[k]
-    if not all(totals.values()):
-        raise AssertionError(f"a kernel was never launched on a main path: "
-                             f"{totals}")
+    # a kernel of the paths launched on them; one that the table marks
+    # off the paths launched on none
+    wrong = [k for k, r in rows.items()
+             if bool(totals[k]) != r.get("on_path", True)]
+    if wrong:
+        raise AssertionError(f"main-path launches disagree with the table's "
+                             f"on_path: {wrong} ({totals})")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": list(rows.values())}))

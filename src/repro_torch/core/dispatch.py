@@ -16,8 +16,8 @@ the reference's partition specs, the collectives are
 :func:`~repro_torch.core.routing.noc_all_to_all`, and
 :meth:`Fabric.unshard` puts the output back together. The buckets go
 through :func:`~repro_torch.core.routing.bucket`, whose ``"pallas"``
-impl launches the ``bucket_rank`` and ``bucket_scatter`` kernels on the
-card. The expert FFN is a batched ``torch.matmul``, as the reference
+impl launches the ``bucket_scatter`` kernels on the card (their staged
+design ranks the tasks in its own launches). The expert FFN is a batched ``torch.matmul``, as the reference
 computes it with einsums outside any Pallas kernel.
 """
 from __future__ import annotations

@@ -37,8 +37,9 @@ _SIGNATURES = {
         "dcra_rank_tile": (),
         "dcra_bucket_rank": (_P, _P, _I64, _I64, _I32, _P, _P, _P),
         "dcra_bucket_scatter": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
-                                _I32, _I64, _P, _P, _P, _P, _P),
-        "dcra_reduce_received": (_P, _P, _I64, _I64, _I64, _I32, _P, _P),
+                                _I32, _I64, _P, _P, _P, _P, _P, _P, _P),
+        "dcra_reduce_received": (_P, _P, _I64, _I64, _I64, _I32, _P, _P,
+                                 _P),
     },
     "histogram": {
         "dcra_histogram": (_P, _I64, _I32, _P, _P),

@@ -1,4 +1,5 @@
-"""The launch plan that the gmm, flash-attention and BSR wrappers share.
+"""The launch plan that the routing, gmm, flash-attention and BSR wrappers
+share.
 
 Each wrapper's ``launch_plan`` computes a :class:`LaunchPlan` in Python
 from shapes and types alone; the wrapper hands it to its C entry point

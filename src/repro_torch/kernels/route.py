@@ -11,28 +11,64 @@ the S shards, and one launch covers all of them.
 * :func:`reduce_received` — the owner-side add/min/store fold
   (``reduce_received_pallas``).
 
-On a CUDA tensor each wrapper launches its hand-written kernel
+On a CUDA tensor each wrapper launches its hand-written kernels
 (``csrc/route.cu``) and adds one to its entry of :data:`LAUNCHES`; on a
 CPU tensor it runs its plain PyTorch version (``plain_*``) instead.
 Any other device raises. The plain versions are also what the tests
 hold against the JAX package and what ``chip_smoke.py`` holds the
 kernels against on the card.
+
+``bucket_scatter`` and ``reduce_received`` each have two designs, picked
+by :func:`bucket_scatter_plan` (from shapes alone) and
+:func:`reduce_received_plan` (from shapes and 16-byte alignment), and
+counted by design in :data:`PATHS`: ``staged`` (rank, capacity test and
+scatter fused, every slot written once) or ``ranked`` (the rank kernel,
+a fill of every slot, one store a kept task: for payloads too wide to
+stage); ``private`` (per-block copies of the outputs in shared memory,
+for ``n_local`` up to :data:`PRIVATE_MAX_LOCAL`) or ``atomic`` (one
+global atomic an entry).
 """
 from __future__ import annotations
 
 import torch
 
+from ._launch import LaunchPlan, aligned as _aligned, as_c
+
 ROUTE_IMPLS = ("pallas", "sort", "onehot")
 REDUCE_OPS = ("add", "min", "store")
 MAX_BUCKETS = 1024        # rank kernel keeps [32 warps, n_buckets] in smem
+THREADS = 256             # ranked scatter, atomic reduce: one task a thread
+SMEM_LIMIT = 232_448      # shared memory one block may take on an H100
+#: a block's least count on the card: 8 on each of the H100's 132 SMs
+TARGET_BLOCKS = 8 * 132
+#: staged: tasks a block (256 threads of 8)
+STAGE_TILE = 2048
+#: private: least entries a block, and the shared memory of one copy a
+#: warp (8 copies) above which a block keeps one copy
+PRIVATE_MIN_CHUNK = 4096
+WARP_COPY_BYTES = 48 * 1024
+#: private: the largest n_local it takes, the most whose one copy fits a
+#: block. ``chip_smoke.py``'s reduce grid (64 shards of 2^23 entries, n_local
+#: 64 to 58,112) timed it faster than atomic at every point by add and by
+#: min on an H100, 1.28x at 58,112 by add: no crossover below this edge
+PRIVATE_MAX_LOCAL = SMEM_LIMIT // 4
+#: the designs of each wrapper, as the C entry points number them
+PATH_CODES = {"bucket_scatter": {"ranked": 0, "staged": 1},
+              "reduce_received": {"atomic": 0, "private": 1}}
 
-#: kernel launches per wrapper since the last reset (chip_smoke reads these)
+#: kernel launches per wrapper since the last reset, in all and by design
+#: (chip_smoke reads these)
 LAUNCHES = {"bucket_rank": 0, "bucket_scatter": 0, "reduce_received": 0}
+PATHS = {name: {path: 0 for path in codes}
+         for name, codes in PATH_CODES.items()}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for paths in PATHS.values():
+        for path in paths:
+            paths[path] = 0
 
 
 def gamma(k):
@@ -216,6 +252,86 @@ def plain_reduce_received(recv_slot, recv_val, n_local, op):
 
 
 # ---------------------------------------------------------------------------
+# launch plans
+# ---------------------------------------------------------------------------
+
+def staged_smem(n_buckets: int, d: int, k: int) -> int:
+    """Shared memory of a staged block: per-warp counts ``[8, B]``, the
+    bucket offsets and tile bases ``2 * [B]``, 16 scan ints, and the
+    staged rows of a tile: slots ``[T]``, x ``[T, D]``, aux ``[k, T]``."""
+    return 4 * ((8 + 2) * n_buckets + 16 + STAGE_TILE * (1 + d + k))
+
+
+def bucket_scatter_plan(s: int, n: int, d: int, k: int, n_buckets: int,
+                        cap: int) -> LaunchPlan:
+    """The design and launch of ``bucket_scatter`` on ``x [s, n, d]`` with
+    ``k`` aux columns into ``n_buckets * cap`` slots a shard:
+
+    * ``staged`` where the tile staging fits a block (:func:`staged_smem`
+      within :data:`SMEM_LIMIT`: at ``d = 1`` any ``k <= 2`` and
+      ``n_buckets <= MAX_BUCKETS``; ``d + k`` up to 22 at 1024 buckets,
+      27 at one) and slot numbers stay within int32: grid (tiles of
+      :data:`STAGE_TILE` tasks, s), 256 threads, that shared memory; the
+      count, scan and fill launches around it follow from the same
+      shapes. Its kernels read the inputs with 4- and 1-byte loads, so a
+      view at any offset takes it;
+    * ``ranked`` otherwise (wide ``d``, ``n_buckets * cap >= 2^31``): the
+      rank kernel, then one thread a task, grid (ceil(n / 256), s).
+
+    ``tiles`` is (tasks a block, n_buckets, d). ``csrc/route.cu``
+    launches this plan as it is and refuses one that differs from its own
+    geometry. Negative sizes, ``n_buckets`` outside ``[1, MAX_BUCKETS]``
+    and ``cap < 1`` raise."""
+    if min(s, n, d, k) < 0:
+        raise ValueError(f"sizes must be >= 0, got s={s} n={n} d={d} k={k}")
+    if not 1 <= n_buckets <= MAX_BUCKETS:
+        raise ValueError(f"n_buckets {n_buckets} outside [1, {MAX_BUCKETS}]")
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    smem = staged_smem(n_buckets, d, k)
+    if smem <= SMEM_LIMIT and n_buckets * cap < 2 ** 31:
+        return LaunchPlan("staged", (STAGE_TILE, n_buckets, d),
+                          (-(-n // STAGE_TILE), s, 1), 256, 1, smem)
+    return LaunchPlan("ranked", (THREADS, n_buckets, d),
+                      (-(-n // THREADS), s, 1), THREADS, 1, 0)
+
+
+def private_plan(s: int, m: int, n_local: int) -> LaunchPlan:
+    """The ``private`` design's launch on ``[s, m]`` entries into ``[s,
+    n_local]``: grid (chunks, s), chunks enough for :data:`TARGET_BLOCKS`
+    blocks but no more than ceil(m / :data:`PRIVATE_MIN_CHUNK`), each
+    block a run of ``chunk`` entries (a multiple of 4), 256 threads,
+    shared memory for 8 copies of the outputs (one a warp) while they fit
+    in :data:`WARP_COPY_BYTES`, else one. ``tiles`` is (entries a block,
+    n_local, copies). It fits a block up to n_local
+    :data:`PRIVATE_MAX_LOCAL`; what picks it is
+    :func:`reduce_received_plan`."""
+    most = -(-TARGET_BLOCKS // max(s, 1))
+    chunks = max(1, min(-(-m // PRIVATE_MIN_CHUNK), most))
+    each = -(-m // chunks)
+    chunk = -(-each // 4) * 4 if each > 1 else 4
+    copies = 8 if 8 * n_local * 4 <= WARP_COPY_BYTES else 1
+    return LaunchPlan("private", (chunk, n_local, copies), (chunks, s, 1),
+                      256, 1, 4 * copies * n_local)
+
+
+def reduce_received_plan(s: int, m: int, n_local: int, aligned: bool = True
+                         ) -> LaunchPlan:
+    """The design and launch of ``reduce_received`` on ``[s, m]`` entries
+    into ``[s, n_local]``: :func:`private_plan` for ``1 <= n_local <=
+    PRIVATE_MAX_LOCAL`` on 16-byte aligned inputs, else ``atomic``: one
+    thread an entry, grid (ceil(m / 256), s), ``tiles`` (256, n_local,
+    1). Negative sizes raise."""
+    if min(s, m, n_local) < 0:
+        raise ValueError(f"sizes must be >= 0, got s={s} m={m} "
+                         f"n_local={n_local}")
+    if aligned and 1 <= n_local <= PRIVATE_MAX_LOCAL:
+        return private_plan(s, m, n_local)
+    return LaunchPlan("atomic", (THREADS, n_local, 1),
+                      (-(-m // THREADS), s, 1), THREADS, 1, 0)
+
+
+# ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -261,7 +377,9 @@ def bucket_scatter(x, dest, valid, aux_ints, n_buckets, cap):
     aux columns ``k*[S, N]``: ``(xb [S, B*cap, D], ints k*[S, B*cap],
     task_slot [S, N], n_drop [S])``. The first ``cap`` valid tasks per
     (shard, destination) in array order are kept; empty slots hold 0 in
-    ``xb`` and -1 in ``ints``; ``task_slot`` is -1 for a dropped task."""
+    ``xb`` and -1 in ``ints``; ``task_slot`` is -1 for a dropped task.
+    The design follows :func:`bucket_scatter_plan`; both give the same
+    bits."""
     if not _on_cuda(x):
         return plain_bucket_scatter(x, dest, valid, aux_ints, n_buckets, cap)
     _check_tasks(dest, valid, n_buckets)
@@ -282,7 +400,13 @@ def bucket_scatter(x, dest, valid, aux_ints, n_buckets, cap):
     total = n_buckets * cap
     dev = x.device
     valid_u8 = valid.view(torch.uint8)
-    rank = _launch_rank(dest, valid_u8, n_buckets)
+    plan = bucket_scatter_plan(s, n, d, k, n_buckets, cap)
+    rank = scratch = None
+    if plan.path == "staged":
+        scratch = torch.empty(s * (plan.grid[0] + 1) * n_buckets,
+                              dtype=torch.int32, device=dev)
+    else:
+        rank = _launch_rank(dest, valid_u8, n_buckets)
     aux = (aux_ints[0][None] if k == 1 else torch.stack(aux_ints)) if k else None
     xb = torch.empty(s, total, d, dtype=torch.float32, device=dev)
     ints = torch.empty(k, s, total, dtype=torch.int32, device=dev)
@@ -290,11 +414,15 @@ def bucket_scatter(x, dest, valid, aux_ints, n_buckets, cap):
     n_drop = torch.empty(s, dtype=torch.int32, device=dev)
     _raise_on(lib.dcra_bucket_scatter(
         x.data_ptr(), dest.data_ptr(), valid_u8.data_ptr(),
-        aux.data_ptr() if k else None, rank.data_ptr(), s, n, d, k,
-        n_buckets, cap, xb.data_ptr(), ints.data_ptr() if k else None,
-        task_slot.data_ptr(), n_drop.data_ptr(), _stream(dev)),
+        aux.data_ptr() if k else None,
+        None if rank is None else rank.data_ptr(), s, n, d, k, n_buckets,
+        cap, xb.data_ptr(), ints.data_ptr() if k else None,
+        task_slot.data_ptr(), n_drop.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        as_c(plan, PATH_CODES["bucket_scatter"][plan.path]), _stream(dev)),
         "bucket_scatter")
     LAUNCHES["bucket_scatter"] += 1
+    PATHS["bucket_scatter"][plan.path] += 1
     return xb, list(ints.unbind(0)), task_slot, n_drop
 
 
@@ -302,7 +430,9 @@ def reduce_received(recv_slot, recv_val, n_local, op):
     """Fold received ``(slot, value)`` pairs ``[S, M]`` into ``[S,
     n_local]`` float32 by ``add`` (empty 0), ``min`` (empty +inf) or
     ``store`` (the largest value wins, empty 0). Slots outside
-    ``[0, n_local)`` are ignored."""
+    ``[0, n_local)`` are ignored; a slot that received a NaN reads +inf
+    under min and 0 under store, NaN under add. The design follows
+    :func:`reduce_received_plan`."""
     if op not in REDUCE_OPS:
         raise ValueError(op)
     if not _on_cuda(recv_slot):
@@ -316,10 +446,14 @@ def reduce_received(recv_slot, recv_val, n_local, op):
            recv_slot.device)
     from ._build import library
     s, m = recv_slot.shape
+    plan = reduce_received_plan(s, m, n_local,
+                                _aligned(recv_slot, recv_val))
     y = torch.empty(s, n_local, dtype=torch.float32, device=recv_slot.device)
     _raise_on(library("route").dcra_reduce_received(
         recv_slot.data_ptr(), recv_val.data_ptr(), s, m, n_local,
-        REDUCE_OPS.index(op), y.data_ptr(), _stream(recv_slot.device)),
-        "reduce_received")
+        REDUCE_OPS.index(op), y.data_ptr(),
+        as_c(plan, PATH_CODES["reduce_received"][plan.path]),
+        _stream(recv_slot.device)), "reduce_received")
     LAUNCHES["reduce_received"] += 1
+    PATHS["reduce_received"][plan.path] += 1
     return y

@@ -10,8 +10,8 @@ The ``cuda`` tests skip without a card: the kernels have no CPU mode.
 The others check the wrappers' device rule on the CPU (a CPU tensor
 takes the plain version and launches nothing, any device other than
 CUDA or CPU raises), the error bounds the card tests use, and the launch
-plans by which the gmm, flash-attention and BSR wrappers pick a kernel
-design and launch it.
+plans by which the bucket-scatter, reduce, gmm, flash-attention and BSR
+wrappers pick a kernel design and launch it.
 """
 import itertools
 import os
@@ -28,11 +28,16 @@ from repro_torch.kernels import route as troute
 from repro_torch.kernels import spmv as tspmv
 
 # (S, N, buckets, cap, aux columns, payload width, share of valid tasks):
-# N = 0 and 1, N off the rank tile, S in {1, 7, 64}, caps that drop,
-# every task invalid, one and two aux columns
+# N = 0 and 1, N off the rank tile and the scatter tile, S in {1, 7,
+# 64}, caps that drop, cap 1 and cap >= N, 1024 buckets, every task
+# invalid, no, one and two aux columns, a wide payload
 BUCKET_CASES = [(1, 0, 4, 2, 1, 1, 0.9), (1, 1, 4, 2, 1, 1, 0.9),
                 (7, 1031, 7, 5, 2, 1, 0.9), (64, 4099, 64, 9, 1, 1, 0.9),
-                (3, 2048, 8, 1, 2, 3, 0.9), (7, 2048, 7, 3, 1, 1, 0.0)]
+                (3, 2048, 8, 1, 2, 3, 0.9), (7, 2048, 7, 3, 1, 1, 0.0),
+                (2, 5003, 1024, 3, 2, 1, 0.9), (3, 4097, 8, 1, 1, 1, 0.9),
+                (2, 3000, 5, 3000, 2, 1, 1.0), (4, 0, 16, 2, 1, 1, 0.9),
+                (1, 8191, 1, 8000, 1, 1, 0.7), (5, 12289, 37, 40, 2, 3, 0.6),
+                (2, 700, 4, 2, 0, 1, 0.8)]
 
 
 def _tasks(seed, s, n, nb, k, d, p_valid, device="cpu"):
@@ -84,45 +89,49 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _off_alignment(t):
+    """A copy of ``t`` that starts one element into its storage (4 bytes,
+    1 for bool)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+#: a payload too wide for the staged design's tile staging at any bucket
+#: count: what takes the ranked design
+WIDE_D = 32
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BUCKET_CASES)
-def test_cuda_bucket_kernels_match_plain(cuda_device, case):
+@pytest.mark.parametrize("design", ["staged", "ranked"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_cuda_bucket_kernels_match_plain(cuda_device, case, design, shifted):
+    """The rank kernel and both scatter designs bit-identical to the plain
+    versions (admission, empty slots 0 / -1, task_slot -1 for a drop,
+    n_drop); the case's payload takes ``staged``, a payload ``WIDE_D``
+    wide ``ranked``, on fresh inputs and on copies that start off a
+    16-byte boundary alike."""
     s, n, nb, cap, k, d, p = case
+    if design == "ranked":
+        d = WIDE_D
+    assert troute.bucket_scatter_plan(s, n, d, k, nb, cap).path == design
     x, dest, valid, aux = _tasks(n + nb, s, n, nb, k, d, p, cuda_device)
-    troute.reset_launches()
     assert torch.equal(troute.bucket_rank(dest, valid, nb),
                        troute.plain_bucket_rank(dest, valid, nb))
+    want = troute.plain_bucket_scatter(x, dest, valid, aux, nb, cap)
+    if shifted:
+        x, dest, valid = (_off_alignment(t) for t in (x, dest, valid))
+        aux = [_off_alignment(a) for a in aux]
+    troute.reset_launches()
     assert _same_bucketing(troute.bucket_scatter(x, dest, valid, aux, nb, cap),
-                           troute.plain_bucket_scatter(x, dest, valid, aux,
-                                                       nb, cap))
+                           want)
     torch.cuda.synchronize()
     assert troute.LAUNCHES["bucket_scatter"] == 1
-    assert troute.LAUNCHES["bucket_rank"] == (2 if n else 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["min", "store", "add"])
-def test_cuda_reduce_kernel_matches_plain(cuda_device, op):
-    """min and store bit-identical; add exact on whole numbers (no f32 sum
-    of them rounds below 2^24), else within 2*k*2^-24 of the slot's sum
-    of |v| for a slot of k terms (two atomic orders of one f32 sum)."""
-    rng = np.random.default_rng(3)
-    slot = torch.from_numpy(rng.integers(-1, 70, (5, 3001)).astype(
-        np.int32)).to(cuda_device)
-    whole = torch.from_numpy(rng.integers(-9, 10, (5, 3001)).astype(
-        np.float32)).to(cuda_device)
-    assert torch.equal(troute.reduce_received(slot, whole, 64, op),
-                       troute.plain_reduce_received(slot, whole, 64, op))
-    frac = whole * 0.37
-    got = troute.reduce_received(slot, frac, 64, op)
-    want = troute.plain_reduce_received(slot, frac, 64, op)
-    if op != "add":
-        assert torch.equal(got, want)
-        return
-    scale = troute.plain_reduce_received(slot, frac.abs(), 64, "add")
-    terms = troute.plain_reduce_received(slot, torch.ones_like(frac), 64,
-                                         "add")
-    assert bool(((got - want).abs() <= 2 * terms * 2.0 ** -24 * scale).all())
+    assert troute.PATHS["bucket_scatter"][design] == 1
+    # the staged scatter ranks in its own passes, the ranked one launches
+    # the rank kernel where there are tasks
+    assert troute.LAUNCHES["bucket_rank"] == (
+        1 if design == "ranked" and n else 0)
 
 
 @pytest.mark.cuda
@@ -148,6 +157,104 @@ def test_cuda_wrappers_check_their_inputs(cuda_device):
         troute.bucket_scatter(x, dest.cpu(), valid.cpu(), aux, 4, 2)
     with pytest.raises(ValueError, match="expected a tensor on"):
         troute.reduce_received(dest, x[..., 0].cpu(), 8, "min")
+
+
+@pytest.mark.cuda
+def test_cuda_staged_scatter_is_bit_identical_over_runs(cuda_device):
+    """No atomics decide a rank, a slot or the drop count: two runs of the
+    staged design with drops give the same bits."""
+    x, dest, valid, aux = _tasks(11, 8, 70001, 8, 2, 1, 0.9, cuda_device)
+    troute.reset_launches()
+    first = troute.bucket_scatter(x, dest, valid, aux, 8, 7000)
+    second = troute.bucket_scatter(x, dest, valid, aux, 8, 7000)
+    torch.cuda.synchronize()
+    assert troute.PATHS["bucket_scatter"] == {"ranked": 0, "staged": 2}
+    assert int(first[3].sum()) > 0
+    assert _same_bucketing(first, second)
+
+
+#: a quiet NaN with the sign bit clear and one with it set
+POS_NAN, NEG_NAN = torch.tensor([0x7FC00000, -0x00400000],
+                                dtype=torch.int32).view(torch.float32)
+
+
+def _same_reduce(got, want):
+    """Equal values, NaN where the other has NaN."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
+# n_local: few outputs (8 copies a block), past the 8 copies (one a
+# block), the private threshold and one past it (atomic)
+REDUCE_LOCALS = [1, 64, 1537, troute.PRIVATE_MAX_LOCAL,
+                 troute.PRIVATE_MAX_LOCAL + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_local", REDUCE_LOCALS)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_reduce_kernel_matches_plain(cuda_device, n_local, aligned):
+    """On the design the plan names: min and store bit-identical to the
+    plain version, add exact on whole numbers and within 2*k*2^-24 of the
+    slot's sum of |v| otherwise; a +NaN and a -NaN in the stream give
+    what the plain version gives (+inf under min, 0 under store, NaN under
+    add). M off 4, so the 16-byte loads meet a ragged head and tail."""
+    rng = np.random.default_rng(n_local)
+    s, m = 3, 40_003
+    slot = torch.from_numpy(rng.integers(-1, n_local + 2, (s, m)).astype(
+        np.int32)).to(cuda_device)
+    whole = torch.from_numpy(rng.integers(-9, 10, (s, m)).astype(
+        np.float32)).to(cuda_device)
+    nan = whole.clone()
+    nan[0, 5], nan[1, 17] = POS_NAN, NEG_NAN
+    slot[0, 5], slot[1, 17] = 0, n_local - 1
+    design = troute.reduce_received_plan(s, m, n_local, aligned).path
+    assert design == ("private" if aligned and n_local
+                      <= troute.PRIVATE_MAX_LOCAL else "atomic")
+    if not aligned:
+        slot, whole, nan = (_off_alignment(t) for t in (slot, whole, nan))
+    troute.reset_launches()
+    for op in troute.REDUCE_OPS:
+        for val in (whole, nan):
+            got = troute.reduce_received(slot, val, n_local, op)
+            want = troute.plain_reduce_received(slot, val, n_local, op)
+            assert _same_reduce(got, want), (op, val is nan)
+        frac = whole * 0.37
+        got = troute.reduce_received(slot, frac, n_local, op)
+        want = troute.plain_reduce_received(slot, frac, n_local, op)
+        if op != "add":
+            assert torch.equal(got, want), op
+            continue
+        scale = troute.plain_reduce_received(slot, frac.abs(), n_local, "add")
+        terms = troute.plain_reduce_received(slot, torch.ones_like(frac),
+                                             n_local, "add")
+        assert bool(((got - want).abs()
+                     <= 2 * terms * 2.0 ** -24 * scale).all())
+    torch.cuda.synchronize()
+    assert troute.PATHS["reduce_received"][design] == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_reduce_nan_reads_as_the_reference(cuda_device, aligned):
+    """A slot that receives {+NaN, 5} reads +inf under min, one that
+    receives {-NaN, 5} reads 0 under store, in either order; add carries
+    the NaN."""
+    slot = torch.tensor([[0, 0, 1, 1, 2, 2, 3]], dtype=torch.int32,
+                        device=cuda_device)
+    val = torch.tensor([[0.0, 5.0, 5.0, 0.0, 0.0, 5.0, 2.0]])
+    val[0, 0], val[0, 3], val[0, 4] = POS_NAN, POS_NAN, NEG_NAN
+    assert bool(torch.signbit(val[0, 4])) and not torch.signbit(val[0, 0])
+    val = val.to(cuda_device)
+    if not aligned:
+        slot, val = _off_alignment(slot), _off_alignment(val)
+    inf = float("inf")
+    assert troute.reduce_received(slot, val, 4, "min")[0].tolist() == [
+        inf, inf, inf, 2.0]
+    assert troute.reduce_received(slot, val, 4, "store")[0].tolist() == [
+        0.0, 0.0, 0.0, 2.0]
+    add = troute.reduce_received(slot, val, 4, "add")[0]
+    assert torch.isnan(add[:3]).all() and float(add[3]) == 2.0
 
 
 # (N, bins): empty, one, off the 16-byte vector, the shared-memory bins
@@ -565,6 +672,86 @@ def test_bsr_launch_plan(bs):
         assert splits == 1 or r * splits // 2 < tspmv.TARGET_BLOCKS
 
 
+@pytest.mark.parametrize("nb", [1, 7, 64, 1024])
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_bucket_scatter_plan(nb, k):
+    """The staged design is taken exactly where the tile staging fits a
+    block and the slots number under 2^31 (no input alignment enters);
+    its tiles of STAGE_TILE tasks cover N once (N = 0 and N off the tile
+    included); a payload WIDE_D wide always takes ranked, which has one
+    thread a task; both fit the card's shared memory. (The
+    C launchers refuse any other geometry:
+    ``test_cuda_kernels_refuse_a_plan_they_do_not_launch``.)"""
+    for s, n, d, cap in itertools.product(
+            [1, 7, 64], [0, 1, 4095, 4096, 4097, 2_235_449],
+            [1, 2, 3, 20, 26, WIDE_D], [1, 9, 139_720, 1 << 22]):
+        p = troute.bucket_scatter_plan(s, n, d, k, nb, cap)
+        smem = troute.staged_smem(nb, d, k)
+        fits = smem <= SMEM_LIMIT and nb * cap < 2 ** 31
+        assert (p.path == "staged") == fits
+        if d == WIDE_D:
+            assert p.path == "ranked"
+        assert p.smem_bytes <= SMEM_LIMIT and p.stages == 1
+        assert p.grid[1:] == (s, 1) and p.tiles[1:] == (nb, d)
+        rows = p.tiles[0]
+        assert (p.grid[0] - 1) * rows < n <= p.grid[0] * rows or \
+            n == p.grid[0] == 0
+        if p.path == "staged":
+            assert (rows, p.threads, p.smem_bytes) == (troute.STAGE_TILE,
+                                                       256, smem)
+        else:
+            assert (rows, p.threads, p.smem_bytes) == (256, 256, 0)
+    # every path's shapes (D 1, k 1-2, up to 1024 buckets) fit
+    assert troute.bucket_scatter_plan(64, 10, 1, 2, 1024, 1).path == "staged"
+
+
+def test_bucket_scatter_plan_refuses():
+    for bad in [dict(n_buckets=0), dict(n_buckets=troute.MAX_BUCKETS + 1),
+                dict(cap=0), dict(n=-1), dict(d=-1)]:
+        args = dict(s=2, n=10, d=1, k=1, n_buckets=4, cap=3)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            troute.bucket_scatter_plan(**args)
+
+
+def test_reduce_received_plan():
+    """The private design is taken exactly for aligned inputs with
+    1 <= n_local <= PRIVATE_MAX_LOCAL; its chunks (a multiple of 4
+    entries) cover M, none empty past the first, at most TARGET_BLOCKS
+    blocks over the shards and no more chunks than ceil(M /
+    PRIVATE_MIN_CHUNK); 8 copies a block while they fit in
+    WARP_COPY_BYTES, else one; atomic has one thread an entry."""
+    t = troute.PRIVATE_MAX_LOCAL
+    for s, m, n_local, aligned in itertools.product(
+            [1, 3, 8, 64, 2000], [0, 1, 3, 4097, 40_003, 8_388_608],
+            [0, 1, 64, 1536, 1537, t, t + 1, 65_536], [True, False]):
+        p = troute.reduce_received_plan(s, m, n_local, aligned)
+        assert (p.path == "private") == (aligned and 1 <= n_local <= t)
+        assert p.smem_bytes <= SMEM_LIMIT and p.stages == 1
+        assert p.grid[1:] == (s, 1) and p.threads == 256
+        rows, local, copies = p.tiles
+        assert local == n_local
+        if p.path == "atomic":
+            assert rows == 256 and p.smem_bytes == 0
+            assert (p.grid[0] - 1) * 256 < m <= p.grid[0] * 256 or \
+                m == p.grid[0] == 0
+            continue
+        chunks = p.grid[0]
+        assert rows % 4 == 0 and chunks >= 1 and chunks * rows >= m
+        assert (chunks - 1) * rows < m or chunks == 1
+        assert chunks == 1 or chunks * s <= troute.TARGET_BLOCKS + s
+        assert chunks == 1 or (chunks - 1) * troute.PRIVATE_MIN_CHUNK < m
+        assert copies == (8 if 32 * n_local <= troute.WARP_COPY_BYTES
+                          else 1)
+        assert p.smem_bytes == 4 * copies * n_local
+
+
+def test_reduce_received_plan_refuses():
+    for bad in [(-1, 5, 4), (2, -1, 4), (2, 5, -1)]:
+        with pytest.raises(ValueError):
+            troute.reduce_received_plan(*bad)
+
+
 def test_bsr_takes_the_plain_version_on_cpu():
     bc, blocks, x = _bsr_inputs(0, 3, 2, 8, 4, "cpu")
     tspmv.reset_launches()
@@ -749,12 +936,13 @@ def test_cuda_kernels_refuse_a_plan_they_do_not_launch(cuda_device):
     """The C launchers compute their own geometry and refuse a launch plan
     that differs from it in any field, so ``launch_plan`` (checked on the
     CPU) is what runs on the card: ``chip_smoke.plans_refused`` launches
-    every design of gmm (4), flash attention (4) and the BSR SpMV (2) with
-    its own plan and with each of the plan's 7 fields altered."""
+    every design of the bucket scatter (2), the reduce (2), gmm (4),
+    flash attention (4) and the BSR SpMV (2) with its own plan and with
+    each of the plan's 7 fields altered."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     try:
         import chip_smoke
     finally:
         sys.path.pop(0)
-    assert chip_smoke.plans_refused(cuda_device) == 10 * 7
+    assert chip_smoke.plans_refused(cuda_device) == 14 * 7
 

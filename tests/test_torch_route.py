@@ -143,6 +143,32 @@ def test_reduce_matches_pallas_and_xla(op, seed):
                 assert np.array_equal(got[r], want)
 
 
+@pytest.mark.parametrize("op", ["min", "store", "add"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_reduce_nan_matches_pallas_and_xla(op, sign):
+    """A NaN of either sign in the stream: the plain version (what the
+    CUDA kernels are held to on the card) gives what the Pallas kernel
+    (interpret) and the XLA segment ops give: +inf under min and 0 under
+    store where a slot received a NaN, before or after a finite value;
+    NaN under add; untouched slots as usual."""
+    nan = np.copysign(np.float32(np.nan), np.float32(sign))
+    slots = np.array([0, 0, 1, 1, 2, 3, 3, -1, 4], np.int32)
+    vals = np.array([nan, 5, 5, nan, -3, 7, 1, nan, nan], np.float32)
+    assert bool(np.signbit(vals[0])) == (sign < 0)
+    n_local = 6
+    got = trouting.reduce_received(_t(slots)[None], _t(vals)[None], n_local,
+                                   op)[0].numpy()
+    want_x = np.asarray(jrouting.reduce_received(
+        jnp.asarray(slots), jnp.asarray(vals), n_local, op))
+    want_p = np.asarray(jroute.reduce_received_pallas(
+        jnp.asarray(slots), jnp.asarray(vals), n_local, op))
+    for want in (want_x, want_p):
+        assert np.array_equal(got, want, equal_nan=True), (got, want)
+    hit = {"min": np.inf, "store": 0.0, "add": np.nan}[op]
+    assert np.array_equal(got[[0, 1, 4]], [hit] * 3, equal_nan=True)
+    assert got[2] == -3.0 and got[5] == (np.inf if op == "min" else 0.0)
+
+
 def test_empty_streams_are_safe():
     e_i = torch.zeros(2, 0, dtype=torch.int32)
     e_b = torch.zeros(2, 0, dtype=torch.bool)
