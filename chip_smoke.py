@@ -79,17 +79,39 @@ script exits non-zero with no result line:
    through inputs that start 2 or 4 bytes off a 16-byte boundary. The
    gmm, flash and BSR C entry points must refuse a launch plan altered
    in any field, and so must the bucket-scatter and reduce entry points
-   (both designs each).
+   (both designs each);
+12. pipelined rounds on RMAT-22 (phase 2's packing): BFS flat 64, pod
+   8 x 8 and on one shard (where the receive-reduce folds into
+   admission: the rank kernel and the reduce run, the scatter must not)
+   bit-identical to lockstep (states, rounds, message and drop
+   streams); PageRank flat 64, 20 rounds, with lockstep's message and
+   drop streams and ranks within twice phase 5's float32 bound of
+   lockstep's. For each mode: TEPS or edges*iters/s (best of 3), and
+   from one profiled launch the device ms a round, the busy share, the
+   host-to-card copies by source memory (pinned or pageable) and the
+   host's blocking reads a round;
+13. the resident server: RMAT-20 (Graph500 parameters, seed 1) on 64
+   shards behind a ``ProgramServer`` of batch width 4 (a product graph
+   of 4 * 2^20 vertices), 64 requests from 4 tenants, BFS and SSSP,
+   roots from a seeded generator, served in lockstep, pipelined, with
+   donated buffers and in lockstep at inflight depth 3: pre-warm adds
+   one key a class, no build and no drop under load,
+   ``ServingStats.verify()``, each pass's peak card memory, the four
+   passes equal response by response and 8 sampled responses bit-identical to
+   standalone ``run_program`` runs; requests/s, p50/p99 latency and the
+   busy share of a profiled pass. Then one ``MoEService`` dispatch of
+   OLMoE-1B-7B (x [8, 2048, 2048], the config's factor) through a
+   server, against a direct ``moe_dcra`` call within 1e-5 of max|out|.
 
-Each path of phases 4-7, 9, 10 and 11 runs with every kernel's launch
-count set to 0 just before it and read just after; the kernel table
-sums them. Each app and MoE path asserts from the route wrappers'
-``PATHS`` that the scatter ran ``staged`` only, and the reduce
-``atomic`` (BFS, PageRank: n_local 65,536) or ``private`` (the routed
-histogram: 64). No path launches the rank kernel any more (the staged
-scatter ranks in its own launches): its row carries the paths' count,
-which must be 0, with ``on_path`` false and ``ranked_on_path_by`` naming
-the staged kernels that rank on the paths.
+Each path of phases 4-7, 9-13 runs with every kernel's launch count set
+to 0 just before it and read just after; the kernel table sums them,
+and the run fails if a kernel of the table launched on no path. Each app
+and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
+ran ``staged`` only, and the reduce ``atomic`` (BFS, PageRank, the
+server: n_local 65,536; one shard: 4,194,304) or ``private`` (the routed
+histogram: 64). The rank kernel runs on one path: one shard's pipelined
+BFS. Every number the script prints about the card stands beside
+``nvidia-smi``'s name and power limit.
 The line before the last is the JSON kernel table (the gmm row carries
 its bf16 run under ``bf16_*`` keys, the flash row its float32 run under
 ``f32_*``; ``design`` and ``f32_design`` on the BSR and flash rows name
@@ -152,6 +174,8 @@ NO_SPILL = ("gmm_blocked_kernel", "flash_blocked_kernel", "bsr_split_kernel",
 #: reduce 2, gmm 4, flash 4, BSR 2
 PLAN_DESIGNS = 14
 CARD = ("cuda", 0)
+#: ``nvidia-smi``'s name and power limit of the card, beside every number
+SMI = "card not read"
 SCALE, SMALL_SCALE = 22, 18        # RMAT scales of the main and small graphs
 HIST_N, HIST_BINS = 1 << 28, 4096
 BSR_TIMED = (2048, 32, 128, 2048)  # R, Kb, BS, Ncb
@@ -557,12 +581,7 @@ def main_shape_kernels(route, routing, setup, device):
         "plain_ms": cuda_ms(lambda: route.plain_bucket_rank(dest, valid, s),
                             2),
         "bound_ms": bound_ms(tasks * (4 + 1 + 4)), "bound_by": "bytes",
-        "library_ms": None,
-        # the staged scatter ranks in its own launches: no path launches
-        # this kernel, and its launches are the paths' count, 0
-        "on_path": False,
-        "ranked_on_path_by": "bucket_scatter/staged (staged_count_kernel, "
-                             "staged_scan_kernel, staged_place_kernel)"}
+        "library_ms": None}
     rows["bucket_rank"] = rank_row
     log(f"kernel bucket_rank: S={s} N={e_max}: {rank_row['ms']:.4f} ms, "
         f"plain {rank_row['plain_ms']:.4f} ms (no yardstick), bound "
@@ -638,11 +657,13 @@ def is_port_kernel(key, name):
     return False
 
 
-def profile_kernels(fn, rounds):
+def profile_kernels(fn, rounds, copies=None):
     """One run of ``fn`` under torch.profiler: ``(device ms per round of
     each wrapper's kernels, device ms of all kernels, wall ms of the run,
     the five costliest device ops as (name, ms))``; ``None`` in place of
-    the first where the profiler saw no device time."""
+    the first where the profiler saw no device time. A dict passed as
+    ``copies`` receives the ms of the host-to-card copies by their
+    source memory (``"Pageable"``, ``"Pinned"``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -660,6 +681,9 @@ def profile_kernels(fn, rounds):
             continue
         total += us
         ops.append((ev.key[:60], us / 1e3))
+        if copies is not None and ev.key.startswith("Memcpy HtoD"):
+            kind = "Pinned" if "Pinned" in ev.key else "Pageable"
+            copies[kind] = copies.get(kind, 0.0) + us / 1e3
         for wrapper, names in KERNEL_NAMES.items():
             if any(is_port_kernel(ev.key, nm) for nm in names):
                 per[wrapper] += us
@@ -1272,6 +1296,7 @@ def run_pagerank(g, setup, device, totals):
         f"computed in {t_bound:.2f} s); worst |err| / bound: oracle "
         f"{w_oracle:.3e}, plain-torch path {w_plain:.3e}")
     log_profile("pagerank flat 64", per_round, device_ms, wall_ms, top)
+    return rank, st, bound
 
 
 def log_profile(tag, per_round, device_ms, wall_ms, top):
@@ -2191,6 +2216,448 @@ def kernel_resources(recs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: pipelined rounds against lockstep on RMAT-22
+# ---------------------------------------------------------------------------
+
+#: what one shard's pipelined BFS launches: the rank kernel and the reduce
+#: (``local_route_reduce``), never the scatter
+FOLD_KERNELS = ("bucket_rank", "reduce_received")
+
+
+def timed_launches(run, reps=3):
+    """Host seconds of ``reps`` synchronised runs of ``run``."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def mode_report(tag, run, rounds, work, unit):
+    """Best of 3 host-clock runs of ``run`` (``work`` units each) and one
+    profiled run: device ms a round, busy share, the host-to-card copies
+    by source memory, the host's blocking reads a round (counted in the
+    profiled run)."""
+    from repro_torch.sparse import program
+    times = timed_launches(run)
+    copies = {}
+    program.reset_host_reads()
+    per_round, device_ms, wall_ms, top = profile_kernels(run, rounds,
+                                                         copies)
+    reads = program.HOST_READS["reads"]
+    busy = device_ms / wall_ms if wall_ms else 0.0
+    log(f"{tag}: {unit} {work / min(times):.4e} (best of 3, run_s "
+        f"{[round(t, 4) for t in times]}); profiled run: device "
+        f"{device_ms / max(rounds, 1):.4f} ms a round, busy {busy:.3f}, "
+        f"host-to-card copies "
+        + (", ".join(f"{k} {v:.2f} ms" for k, v in sorted(copies.items()))
+           or "none listed")
+        + f", blocking host reads {reads / max(rounds, 1):.3f} a round "
+        f"({reads} in {rounds} rounds) [{SMI}]")
+    log_profile(tag, per_round, device_ms, wall_ms, top)
+
+
+def same_run(tag, a, b):
+    """Two graph-program runs with the same states (bit for bit), rounds
+    and per-round message and drop counts."""
+    import numpy as np
+    (sa, ta), (sb, tb) = a, b
+    if not (all(np.array_equal(x, y) for x, y in zip(sa, sb))
+            and ta.rounds == tb.rounds
+            and np.array_equal(ta.messages, tb.messages)
+            and np.array_equal(ta.drops, tb.drops)):
+        raise AssertionError(f"{tag}: pipelined differs from lockstep")
+
+
+def copy_report(setup, device):
+    """One launch's edge arrays onto the card, best of 3 on the host clock
+    (synchronised): a pageable ``.to(device)`` (the launch before pinned
+    staging) against ``program._to_device`` (the host memcpy into pinned
+    memory and the non-blocking copy); and the non-blocking copy from
+    pinned memory alone by CUDA events. The profiler misses copies in
+    some runs (``PERF.md`` §7); this does not depend on it."""
+    import torch
+    from repro_torch.sparse import program
+    arrays = setup[1:4]
+    n_bytes = sum(a.nbytes for a in arrays)
+
+    def best(fn):
+        return min(timed_launches(fn)) * 1e3
+    pageable = best(lambda: [torch.from_numpy(a).to(device)
+                             for a in arrays])
+    staged = best(lambda: program._to_device(arrays, device))
+    pins = program._to_device(arrays, device)[1]
+    dma = cuda_ms(lambda: [p.to(device, non_blocking=True) for p in pins], 3)
+    log(f"host-to-card copy of one launch's edges ({n_bytes} B): pageable "
+        f".to(device) {pageable:.2f} ms; pinned staging {staged:.2f} ms "
+        f"(host memcpy and copy), of which the copy from pinned memory "
+        f"{dma:.2f} ms (CUDA events, {n_bytes / dma / 1e6:.1f} GB/s) "
+        f"[{SMI}]")
+
+
+def rank_at_fold(route, setup1, want, device):
+    """``bucket_rank`` at the shape its path gives it, one shard's
+    pipelined BFS: every edge of RMAT-22 on one shard, one bucket, the
+    active tasks of BFS's busiest round (the edges whose source is one
+    hop from the root). Bit-identical to the plain version; its row's
+    times and bound."""
+    import torch
+    _, src_slot, dst, _, e_max = setup1
+    dest = torch.zeros(1, e_max, dtype=torch.int32, device=device)
+    hop = torch.from_numpy(want == 1).to(device)
+    valid = ((hop[torch.from_numpy(src_slot).to(device).long()])
+             & (torch.from_numpy(dst).to(device) >= 0)).view(1, e_max)
+    got = route.bucket_rank(dest, valid, 1)
+    plain = route.plain_bucket_rank(dest, valid, 1)
+    if not torch.equal(got, plain):
+        raise AssertionError("bucket_rank at one shard's BFS round differs "
+                             "from its plain version")
+    del got, plain
+    active = int(valid.sum())
+    out = {"ms": cuda_ms(lambda: route.bucket_rank(dest, valid, 1), 5),
+           "plain_ms": cuda_ms(lambda: route.plain_bucket_rank(dest, valid,
+                                                                1), 2),
+           "bound_ms": bound_ms(e_max * (4 + 1 + 4)), "max_abs_err": 0.0}
+    log(f"kernel bucket_rank at one shard's BFS round (S=1 N={e_max}, 1 "
+        f"bucket, {active} active): {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms (no yardstick), bound "
+        f"{out['bound_ms']:.4f} ms ({e_max * 9} B / 3.35 TB/s); "
+        f"bit-identical to the plain version [{SMI}]")
+    reduce_at_fold(route, want, src_slot, dst, valid, device)
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduce_at_fold(route, want, src_slot, dst, valid, device):
+    """``reduce_received`` at the shape the fold gives it in the same
+    round: S 1, n_local = n, every edge an entry, the inactive ones at
+    slot -1, the values BFS's payload (the source's distance + 1, after
+    round 1). Min: bit-identical to the plain version; the kernel's and
+    the plain version's times and the bound, logged."""
+    import torch
+    e_max, n = valid.shape[1], want.shape[0]
+    hops = torch.from_numpy(want).to(device)
+    dist = torch.where((hops >= 0) & (hops <= 1), hops.float(), float("inf"))
+    vals = (dist[torch.from_numpy(src_slot).to(device).long()] + 1.0
+            ).view(1, e_max)
+    seg = torch.where(valid, torch.from_numpy(dst).to(device).view(1, e_max),
+                      -1).to(torch.int32)
+    del hops, dist
+    plan = route.reduce_received_plan(1, e_max, n)
+    got = route.reduce_received(seg, vals, n, "min")
+    plain = route.plain_reduce_received(seg, vals, n, "min")
+    if not torch.equal(got, plain):
+        raise AssertionError("reduce_received at one shard's BFS round "
+                             "differs from its plain version")
+    del got, plain
+    ms = cuda_ms(lambda: route.reduce_received(seg, vals, n, "min"), 5)
+    plain_ms = cuda_ms(lambda: route.plain_reduce_received(seg, vals, n,
+                                                           "min"), 2)
+    n_bytes = e_max * 8 + n * 4
+    log(f"kernel reduce_received (min, {plan.path}) at one shard's BFS "
+        f"round (S=1 M={e_max}, n_local {n}, {int(valid.sum())} live): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms(n_bytes):.4f} ms ({n_bytes} B / 3.35 TB/s); "
+        f"bit-identical to the plain version [{SMI}]")
+
+
+def run_pipelined(g, root, want, setup, device, totals, pagerank):
+    """Phase 12: BFS on RMAT-22 in lockstep and pipelined rounds, flat 64,
+    pod 8 x 8 and one shard (``fold_local``), bit-identical; PageRank
+    flat 64, 20 rounds, the same message and drop streams and ranks
+    within phase 5's float32 bound (twice it: both sides carry one) of
+    lockstep. Each mode once more for its rates, copies and reads.
+    Returns the rank kernel's times at the one-shard path's shape
+    (:func:`rank_at_fold`)."""
+    import numpy as np
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.sparse import program
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import BFS, PAGERANK
+    reached = int(g.degrees()[want >= 0].sum())
+    copy_report(setup, device)
+    t0 = time.perf_counter()
+    setup1 = program._graph_setup(g, 1)
+    log(f"pipelined: pack onto 1 shard {time.perf_counter() - t0:.2f} s "
+        f"(E_max {setup1[-1]})")
+    for layout, fab, opts, stp in [
+            ("flat 64", Fabric.fake(64, device=device),
+             LaunchOptions(capacity_factor=4.0), setup),
+            ("pod 8x8", Fabric.virtual((8, 8), ("pod", "data"),
+                                       device=device),
+             LaunchOptions(pod_axis="pod", capacity_factor=2.0), setup),
+            ("1 shard", Fabric.fake(1, device=device),
+             LaunchOptions(capacity_factor=4.0), setup1)]:
+        runs = {}
+        for mode in ("lockstep", "pipelined"):
+            o = opts.with_(round_mode=mode)
+
+            def run(o=o, fab=fab, stp=stp):
+                return program.run_program(BFS, g, fab, options=o,
+                                           params={"root": root}, setup=stp)
+            fold = layout == "1 shard" and mode == "pipelined"
+            with MainPath(f"BFS {layout} {mode}",
+                          FOLD_KERNELS if fold else ROUTE_KERNELS, totals,
+                          {"reduce_received": "atomic"} if fold
+                          else STAGED_ATOMIC) as path:
+                runs[mode] = run()
+            if fold and path.launches["bucket_scatter"]:
+                raise AssertionError(f"BFS 1 shard pipelined: the scatter "
+                                     f"ran ({path.launches})")
+            (dist,), st = runs[mode]
+            if not np.array_equal(np.where(np.isfinite(dist), dist, -1),
+                                  want) or st.total_drops:
+                raise AssertionError(f"BFS {layout} {mode}: differs from "
+                                     f"the oracle or dropped")
+            log(f"bfs {layout} {mode}: rounds {st.rounds}, launches "
+                f"{path.launches}, route designs {path.paths}")
+            mode_report(f"bfs {layout} {mode}", run, st.rounds, reached,
+                        "TEPS")
+        same_run(f"BFS {layout}", runs["lockstep"], runs["pipelined"])
+        log(f"bfs {layout}: pipelined bit-identical to lockstep (states, "
+            f"rounds, message and drop streams)")
+    from repro_torch.kernels import route
+    rank_row = rank_at_fold(route, setup1, want, device)
+    del setup1
+    rank_l, st_l, bound = pagerank
+    fab = Fabric.fake(64, device=device)
+
+    def pagerank_run(mode):
+        opts = LaunchOptions(capacity_factor=4.0, round_mode=mode)
+        return lambda: program.run_program(
+            PAGERANK, g, fab, options=opts,
+            params={"damping": 0.85, "iters": 20}, setup=setup)
+    with MainPath("PageRank flat 64 pipelined", ROUTE_KERNELS, totals,
+                  STAGED_ATOMIC) as path:
+        (rank, _, _), st = pagerank_run("pipelined")()
+    if not (st.rounds == st_l.rounds == 20
+            and np.array_equal(st.messages, st_l.messages)
+            and np.array_equal(st.drops, st_l.drops)):
+        raise AssertionError("PageRank pipelined: streams differ from "
+                             "lockstep")
+    worst = held_to("PageRank pipelined vs lockstep", rank, rank_l,
+                    2 * bound)
+    log(f"pagerank flat 64 pipelined: message and drop streams equal to "
+        f"lockstep's, every vertex within twice its float32 bound of "
+        f"lockstep's rank (worst |err| / bound {worst:.3e}); launches "
+        f"{path.launches}")
+    for mode in ("lockstep", "pipelined"):
+        mode_report(f"pagerank flat 64 {mode}", pagerank_run(mode), 20,
+                    g.nnz * 20, "edges*iters/s")
+    return rank_row
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the server on the card
+# ---------------------------------------------------------------------------
+
+SERVE_SCALE = 20                   # RMAT scale of the resident graph
+SERVE_REQUESTS, SERVE_WIDTH, SERVE_TENANTS = 64, 4, 4
+SERVE_SAMPLES = 8                  # responses held to standalone runs
+SERVE_PROFILED = 16                # requests of the profiled pass
+
+
+def serve_requests(n_vertices):
+    """The stream: ``SERVE_REQUESTS`` requests from ``SERVE_TENANTS``
+    tenants, BFS and SSSP in turns of one request a tenant (so FIFO
+    fills every batch), roots from a seeded numpy generator."""
+    import numpy as np
+    from repro_torch.serve import Request
+    roots = np.random.default_rng(SEED).integers(0, n_vertices,
+                                                 SERVE_REQUESTS)
+    return [Request(i, f"tenant{i % SERVE_TENANTS}",
+                    "bfs" if (i // SERVE_TENANTS) % 2 == 0 else "sssp",
+                    f"rmat{SERVE_SCALE}", root=int(roots[i]))
+            for i in range(SERVE_REQUESTS)]
+
+
+def quantile(xs, q):
+    """Nearest-rank quantile, as ``repro_torch.serve.stats``."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+
+
+def serve_pass(tag, srv, reqs, totals, width):
+    """One pass of the stream through ``srv`` on a path of its own:
+    responses, the cache deltas and the host seconds."""
+    import torch
+    from repro_torch.sparse import program
+    c0 = program.cache_stats()
+    with MainPath(tag, ROUTE_KERNELS, totals, STAGED_ATOMIC) as path:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        resps = srv.run(reqs)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    c1 = program.cache_stats()
+    delta = {k: c1[k] - c0[k] for k in c0}
+    srv.stats.verify()
+    bad = [r for r in resps if r.status != "ok"]
+    if bad or delta["misses"] or delta["kernel_traces"]:
+        raise AssertionError(f"{tag}: {len(bad)} responses not ok "
+                             f"({bad[:1]}), cache {delta}")
+    drops = sum(r.batch_drops for r in resps)
+    if drops or srv.stats.noc_drops:
+        raise AssertionError(f"{tag}: {drops} drops")
+    lat = [r.latency_s for r in resps]
+    rounds = sorted({r.rounds for r in resps})
+    log(f"{tag}: {len(reqs)} requests in {wall:.4f} s, requests/s "
+        f"{len(reqs) / wall:.4e}, latency p50 {quantile(lat, 0.5):.4f} s "
+        f"p99 {quantile(lat, 0.99):.4f} s, {srv.stats.launches} launches of "
+        f"width {width} at inflight depth "
+        f"{srv.serve_options.inflight_depth}, rounds "
+        f"{rounds[0]}-{rounds[-1]}, cache {delta}, no drop, stats verified; "
+        f"peak card memory above the resident graph {peak} B; launches "
+        f"{path.launches} [{SMI}]")
+    return resps
+
+
+def run_server(device, totals):
+    """Phase 13: RMAT-20 resident on 64 shards behind a ``ProgramServer``
+    of batch width 4 (the product graph: 4 * 2^20 vertices), the
+    request stream served in lockstep, pipelined, with donated buffers
+    and in lockstep with three launches in flight: pre-warm keys, no build and no drop under load, the stats
+    ledger, sampled responses bit-identical to standalone
+    ``run_program`` runs (outside the timed passes); requests/s, p50/p99
+    latency and, from a profiled pass over the first requests, the busy
+    share. Then one ``MoEService`` dispatch of OLMoE-1B-7B at full
+    width against a direct ``moe_dcra`` call."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.serve import (ProgramServer, ServeOptions,
+                                   tenant_graph)
+    from repro_torch.sparse import datasets, program
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import BFS, SSSP
+    t0 = time.perf_counter()
+    g = datasets.rmat(SERVE_SCALE, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    tg = tenant_graph(g, SERVE_WIDTH)
+    log(f"serve rmat-{SERVE_SCALE}: n={g.n} nnz={g.nnz}, product graph of "
+        f"width {SERVE_WIDTH}: n={tg.n} nnz={tg.nnz}; generate "
+        f"{t_gen:.2f} s, expand {time.perf_counter() - t0 - t_gen:.2f} s")
+    fab = Fabric.fake(64, device=device)
+    name = f"rmat{SERVE_SCALE}"
+    reqs = serve_requests(g.n)
+    passes = {}
+    # the depth-3 pass shares the lockstep pass's keys: its pre-warm
+    # adds none
+    for tag, opts, so, n_new in [
+            ("lockstep", LaunchOptions(), ServeOptions(), 1),
+            ("pipelined", LaunchOptions(round_mode="pipelined"),
+             ServeOptions(), 1),
+            ("donated", LaunchOptions(), ServeOptions(donate_buffers=True),
+             1),
+            ("lockstep depth 3", LaunchOptions(),
+             ServeOptions(inflight_depth=3), 0)]:
+        srv = ProgramServer(fab, {name: g}, batch_width=SERVE_WIDTH,
+                            options=opts, serve_options=so)
+        t0 = time.perf_counter()
+        keys0 = set(program.cache_keys())
+        warm = srv.prewarm(("bfs", "sssp"))
+        new = set(program.cache_keys()) - keys0
+        want_keys = {(p, name): n_new for p in ("bfs", "sssp")}
+        if ({k: len(v) for k, v in warm.items()} != want_keys
+                or len(new) != 2 * n_new
+                or set().union(*map(set, warm.values())) != new):
+            raise AssertionError(f"serve {tag}: pre-warm added {len(new)} "
+                                 f"keys, by class {warm}")
+        log(f"serve {tag}: pre-warm {time.perf_counter() - t0:.2f} s (the "
+            f"resident packing included), {n_new} new key each for bfs "
+            f"and sssp")
+        passes[tag] = serve_pass(f"serve {tag}", srv, reqs, totals,
+                                 SERVE_WIDTH)
+        _, device_ms, wall_ms, top = profile_kernels(
+            lambda: srv.run(reqs[:SERVE_PROFILED]), 1)
+        log(f"serve {tag}: profiled pass over {SERVE_PROFILED} requests: "
+            f"device {device_ms:.2f} ms of {wall_ms:.2f} ms (busy "
+            f"{device_ms / wall_ms if wall_ms else 0.0:.3f}); costliest "
+            f"device ops (ms): "
+            + "; ".join(f"{op} {ms:.2f}" for op, ms in top) + f" [{SMI}]")
+        srv.stats.verify()
+        del srv
+    base = [r.result for r in passes["lockstep"]]
+    for tag in ("pipelined", "donated", "lockstep depth 3"):
+        if not all(np.array_equal(a, r.result)
+                   for a, r in zip(base, passes[tag])):
+            raise AssertionError(f"serve {tag}: responses differ from the "
+                                 f"lockstep pass")
+    setup = program._graph_setup(g, 64)
+    picks = range(0, SERVE_REQUESTS, SERVE_REQUESTS // SERVE_SAMPLES)
+    for i in picks:
+        r = reqs[i]
+        (d,), _ = program.run_program(BFS if r.program == "bfs" else SSSP,
+                                      g, fab, params={"root": r.root},
+                                      setup=setup)
+        if not np.array_equal(d, base[i]):
+            raise AssertionError(f"serve: response {i} differs from its "
+                                 f"standalone run")
+    log(f"serve: the pipelined, donated and depth-3 passes equal the "
+        f"lockstep pass "
+        f"response by response; responses {list(picks)} bit-identical to "
+        f"standalone run_program runs of their roots")
+    del setup, passes, base
+    torch.cuda.empty_cache()
+    run_moe_service(device, totals)
+
+
+def run_moe_service(device, totals):
+    """One ``MoEService`` dispatch through a ``ProgramServer``: 8 requests
+    of [2048, 2048] tokens (x [8, 2048, 2048], the config's capacity
+    factor) on the fused packaging, against a direct ``moe_dcra`` call on
+    the same weights within 1e-5 of max|out| (the combine adds in any
+    order)."""
+    import torch
+    from repro_torch.core.dispatch import MeshInfo, moe_dcra
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.serve import MoEService, ProgramServer, Request
+    cfg, params, x = moe_setup(device)
+    label, shape, names, kw = MOE_PACKAGINGS[0]
+    info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+    svc = MoEService(cfg, params, info, batch=MOE_TOKENS[0],
+                     seq=MOE_TOKENS[1])
+    srv = ProgramServer(info.mesh, {}, moe=svc)
+    blocks = x.cpu().numpy()
+    reqs = [Request(i, f"tenant{i}", "moe", payload=blocks[i])
+            for i in range(MOE_TOKENS[0])]
+    srv.prewarm(("moe",))
+    with MainPath("MoE service", BUCKET_KERNELS, totals, STAGED) as path:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resps = srv.run(reqs)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    srv.stats.verify()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, _ = moe_dcra(params, x, cfg, info)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    want = want.cpu()
+    scale = float(want.abs().max())
+    err = max(float((torch.from_numpy(r.result) - want[i]).abs().max())
+              for i, r in enumerate(resps))
+    if ([r.status for r in resps] != ["ok"] * len(reqs) or svc.traces != 1
+            or not err <= 1e-5 * scale):
+        raise AssertionError(f"MoE service: statuses "
+                             f"{[r.status for r in resps]}, builds "
+                             f"{svc.traces}, max |err| {err} vs max|out| "
+                             f"{scale}")
+    log(f"moe service {label}: one dispatch of {len(reqs)} requests x "
+        f"{tuple(blocks.shape[1:])}: {serve_ms:.2f} ms through the server "
+        f"(host copies of x and out included), direct moe_dcra "
+        f"{direct_ms:.2f} ms; max |out - moe_dcra| {err:.3e} = "
+        f"{err / scale:.3e} of max|out| (bound 1e-5); launches "
+        f"{path.launches} [{SMI}]")
+
+
 def bfs_rounds(src):
     """``--bfs-rounds [SRC]``: BFS on RMAT-22, flat 64 shards at factor 4,
     with the ``repro_torch`` package found under ``SRC`` (default: this
@@ -2273,9 +2740,11 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
 
     # ---- 1: card + build ---------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    global SMI
+    smi = SMI = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     device = torch.device(*CARD)
     name = torch.cuda.get_device_name(0)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2333,12 +2802,10 @@ def main() -> int:
     t0 = phase("4 (BFS rmat-22)", t0)
 
     # ---- 5-7: PageRank, SpMV, histogram ------------------------------------
-    run_pagerank(g, setup, device, totals)
+    pagerank = run_pagerank(g, setup, device, totals)
     t0 = phase("5 (PageRank rmat-22)", t0)
-    del setup
     run_spmv(g, device, totals)
     t0 = phase("6 (SpMV rmat-22)", t0)
-    del g
     run_histogram(els, device, totals)
     del els
     t0 = phase("7 (histogram 2^28)", t0)
@@ -2359,18 +2826,30 @@ def main() -> int:
     rows["flash_attention"] = run_flash(device, totals)
     t0 = phase("11 (gmm, flash attention)", t0)
 
+    # ---- 12-13: pipelined rounds; the server -------------------------------
+    torch.cuda.empty_cache()
+    # the rank kernel's row: its path's shape (one shard), the flat BFS
+    # round's kept beside it under flat64_*
+    rank = rows["bucket_rank"]
+    rank.update({f"flat64_{k}": rank[k] for k in ("ms", "plain_ms",
+                                                   "bound_ms")})
+    rank.update(run_pipelined(g, root, want, setup, device, totals,
+                              pagerank))
+    del g, setup, want, pagerank
+    torch.cuda.empty_cache()
+    t0 = phase("12 (pipelined rounds rmat-22)", t0)
+    run_server(device, totals)
+    t0 = phase("13 (server rmat-20, MoE service)", t0)
+
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:
         rows[k]["launches"] = totals[k]
     for k in WGMMA_LIBS:
         rows[k]["hgmma"] = hgmma[k]
-    # a kernel of the paths launched on them; one that the table marks
-    # off the paths launched on none
-    wrong = [k for k, r in rows.items()
-             if bool(totals[k]) != r.get("on_path", True)]
-    if wrong:
-        raise AssertionError(f"main-path launches disagree with the table's "
-                             f"on_path: {wrong} ({totals})")
+    # every kernel of the table launched on the paths
+    idle = [k for k in rows if not totals[k]]
+    if idle:
+        raise AssertionError(f"kernels no path launched: {idle} ({totals})")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": list(rows.values())}))

@@ -22,7 +22,7 @@ a tuple of axes (linear index row-major in the tuple's order, as
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import cached_property
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -39,13 +39,18 @@ PORTAL_AXIS_NAMES = ("pod", "portal")
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means the card, and
     raises when there is none (the port never falls back to the CPU
-    unless asked)."""
+    unless asked). A card named without an index is the current one, so
+    the fabric's device equals its tensors' (``cuda:0``, not ``cuda``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run "
                                "on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    device = torch.device(device)
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.is_available()):
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @dataclass(frozen=True)
@@ -99,6 +104,38 @@ class Fabric:
     def fabric_key(self) -> tuple:
         """Stable identity for the round-function cache."""
         return (self.axis_names, self.shape, str(self.device))
+
+    # ---- elasticity ----------------------------------------------------
+
+    def resize(self, n_shards: int) -> "Fabric":
+        """A fabric of ``n_shards`` shards on the same device
+        (``repro/core/fabric.py:285-310``): the leading axis absorbs the
+        change and the trailing axes keep their sizes; where the count
+        does not keep that structure, the fabric goes flat over the last
+        axis name. The new shape gives a new :meth:`fabric_key`, so its
+        launches build their own round functions."""
+        n_shards = int(n_shards)
+        if n_shards < 1:
+            raise ValueError("cannot resize to an empty fabric")
+        inner = math.prod(self.shape[1:]) if len(self.shape) > 1 else 1
+        lead, rem = divmod(n_shards, inner)
+        if len(self.shape) > 1 and rem == 0 and lead >= 1:
+            shape, names = (lead,) + self.shape[1:], self.axis_names
+        else:
+            shape, names = (n_shards,), self.axis_names[-1:]
+        portal = self.portal_axis if self.portal_axis in names else None
+        # a new instance: the cached axis bookkeeping starts afresh
+        return replace(self, axis_names=names, shape=shape,
+                       portal_axis=portal)
+
+    def shrink(self, keep: int) -> "Fabric":
+        """:meth:`resize` onto the first ``keep`` shards: the host-loss
+        degrade of the serving tier (``repro/core/fabric.py:312-328``)."""
+        keep = int(keep)
+        if not 1 <= keep <= self.n_devices:
+            raise ValueError(f"shrink keeps {keep} of {self.n_devices} "
+                             f"devices — need 1 <= keep <= n_devices")
+        return self.resize(keep)
 
     # ---- axes and the stacked-shard index helpers --------------------
 

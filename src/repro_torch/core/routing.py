@@ -1,5 +1,5 @@
 """Owner-routed NoC rounds on virtual shards (counterpart of
-``repro/core/routing.py:51-330, 459-492``).
+``repro/core/routing.py:51-492``).
 
 The reference functions run per shard inside ``shard_map``; these take
 every shard at once, stacked on the leading dimension (``dest [S, N]``
@@ -14,6 +14,12 @@ holds the N tasks of each of the S shards). A round is:
      :func:`noc_all_to_all`, a transpose of ``[S_src, S_dst, cap, C]``;
   3. on the pod/portal path, stage 1 routes over the intra-pod axis to
      the destination's portal and stage 2 hops once over the pod axis.
+
+The pipelined round splits a round into a produce half
+(:func:`owner_route_start`, :func:`owner_route_hier_start`: bucket, pack
+and exchange, with an int32 signal riding the exchange) and a consume
+half (:func:`owner_route_finish`); :func:`local_route_reduce` is a whole
+round whose producer and consumer are one shard.
 
 Shard id on the pod/portal path: ``g = pod * n_intra + intra``.
 """
@@ -167,15 +173,10 @@ def noc_all_to_all(x, shape: Sequence[int], dim):
 HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
-def pack_wire(vals: Optional[torch.Tensor], int_cols: Sequence[torch.Tensor]
-              ) -> Tuple[torch.Tensor, tuple]:
-    """Pack value columns + int32 metadata columns into one f32 wire array
-    ``[S, R, C]``. Ints are bitcast (``Tensor.view``), never converted,
-    so -1 travels as a NaN pattern untouched. Half-width payloads (bf16,
-    f16) are bitcast two to a float32 lane, an odd width padded with a
-    zero column, so the wire has ``ceil(D/2) + len(int_cols)`` columns
-    (``repro/core/routing.py:210-249``). Returns ``(packed, meta)`` for
-    :func:`unpack_wire`."""
+def _wire_columns(vals: Optional[torch.Tensor],
+                  int_cols: Sequence[torch.Tensor]) -> Tuple[list, tuple]:
+    """The f32 column blocks of a wire and its ``meta`` (see
+    :func:`pack_wire`)."""
     if vals is None and not int_cols:
         raise ValueError("nothing to route")
     cols = []
@@ -198,8 +199,21 @@ def pack_wire(vals: Optional[torch.Tensor], int_cols: Sequence[torch.Tensor]
         cols.append(vals)
     for c in int_cols:
         cols.append(c.to(torch.int32).view(torch.float32)[..., None])
+    return cols, (dtype, d_vals, half, squeeze, len(int_cols))
+
+
+def pack_wire(vals: Optional[torch.Tensor], int_cols: Sequence[torch.Tensor]
+              ) -> Tuple[torch.Tensor, tuple]:
+    """Pack value columns + int32 metadata columns into one f32 wire array
+    ``[S, R, C]``. Ints are bitcast (``Tensor.view``), never converted,
+    so -1 travels as a NaN pattern untouched. Half-width payloads (bf16,
+    f16) are bitcast two to a float32 lane, an odd width padded with a
+    zero column, so the wire has ``ceil(D/2) + len(int_cols)`` columns
+    (``repro/core/routing.py:210-249``). Returns ``(packed, meta)`` for
+    :func:`unpack_wire`."""
+    cols, meta = _wire_columns(vals, int_cols)
     packed = cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
-    return packed, (dtype, d_vals, half, squeeze, len(int_cols))
+    return packed, meta
 
 
 def unpack_wire(recv: torch.Tensor, meta: tuple
@@ -258,6 +272,120 @@ def owner_route_hier(vals, slot_ids, owner, valid, n_intra, n_pods, cap1,
                                        [slot1], n_pods, cap2, impl=impl)
     v2, (recv_slot,) = fused_all_to_all(xb2, [slot2_b], shape, 0)
     return recv_slot, v2[..., 0].contiguous(), drop1 + drop2
+
+
+# ---------------------------------------------------------------------------
+# split-phase rounds (the pipelined round's communication edge)
+# ---------------------------------------------------------------------------
+
+def _a2a_with_signal(vals, int_cols, shape: Sequence[int], dim: int,
+                     signal: torch.Tensor):
+    """Pack ``vals`` and ``int_cols`` (see :func:`pack_wire`; ``[S,
+    B*rows]`` tasks, B the peers over fabric axis ``dim``) with one signal
+    row appended to each destination block, the int32 ``signal [S]``
+    bitcast into its column 0, and exchange them over ``dim``
+    (``repro/core/routing.py:347-371``). The blocks are written straight
+    into one ``[S, B, rows + 1, C]`` wire, so the row costs no extra copy
+    of the tasks. Returns ``(recv [S, B, rows + 1, C], meta, gsignal
+    [S])``: ``gsignal`` is the sum of the signals of the peers a shard
+    received from; :func:`_strip` gives the task rows, value-identical
+    to :func:`fused_all_to_all`'s."""
+    cols, meta = _wire_columns(vals, int_cols)
+    s, total = cols[0].shape[:2]
+    n_blocks = shape[dim]
+    rows = total // n_blocks
+    c = sum(col.shape[-1] for col in cols)
+    wire = cols[0].new_empty(s, n_blocks, rows + 1, c)
+    j = 0
+    for col in cols:
+        w = col.shape[-1]
+        wire[:, :, :rows, j:j + w] = col.view(s, n_blocks, rows, w)
+        j += w
+    wire[:, :, rows] = 0.0
+    wire[:, :, rows, 0] = signal.to(torch.int32).view(torch.float32)[:, None]
+    recv = noc_all_to_all(wire.view(s, n_blocks * (rows + 1), c), shape,
+                          dim).view(s, n_blocks, rows + 1, c)
+    gsignal = recv[:, :, rows, 0].contiguous().view(torch.int32).sum(
+        1, dtype=torch.int32)
+    return recv, meta, gsignal
+
+
+def _unpack_signalled(recv: torch.Tensor, meta: tuple):
+    """:func:`unpack_wire` of a signalled wire's task rows (``[S, B, rows
+    + 1, C]`` -> values and ints ``[S, B*rows, ...]``), each column read
+    once, with no copy of the whole wire."""
+    s, b, rows1, _ = recv.shape
+    v, ints = unpack_wire(recv[:, :, :rows1 - 1], meta)
+    m = b * (rows1 - 1)
+    ints = [a.reshape(s, m) for a in ints]
+    return (None if v is None else v.reshape(s, m, *v.shape[3:])), ints
+
+
+def owner_route_start(vals, slot_ids, owner, valid, n_shards, cap, signal,
+                      impl=None):
+    """Produce half of one flat round: bucket, pack and exchange, the
+    int32 ``signal [S]`` riding along (:func:`_a2a_with_signal`).
+    Returns ``(recv, meta, n_drop [S], gsignal [S])``; hand ``(recv,
+    meta)`` to :func:`owner_route_finish`, across a loop iteration if need
+    be, for :func:`owner_route`'s receive values."""
+    xb, (slot_b,), _, n_drop = bucket(vals[..., None], owner, valid,
+                                      [slot_ids], n_shards, cap, impl=impl)
+    recv, meta, gsignal = _a2a_with_signal(xb, [slot_b], (n_shards,), 0,
+                                           signal)
+    return recv, meta, n_drop, gsignal
+
+
+def owner_route_finish(recv, meta):
+    """Consume half: ``(recv_slot, recv_val)`` from a carried wire, equal
+    to :func:`owner_route`'s (feed them to :func:`reduce_received`)."""
+    recv_vals, (recv_slot,) = _unpack_signalled(recv, meta)
+    return recv_slot, recv_vals[..., 0].contiguous()
+
+
+def owner_route_hier_start(vals, slot_ids, owner, valid, n_intra, n_pods,
+                           cap1, cap2, signal, impl=None):
+    """Produce half of one pod/portal round: both stages run here (stage
+    2's bucketing needs stage 1's receive), so the pod-crossing exchange
+    is the one carried. The signal crosses both stages: stage 1 sums it
+    within each pod, stage 2 over the pods, so ``gsignal`` is the global
+    sum, as on the flat path. Returns ``(recv2, meta2, n_drop [S],
+    gsignal [S])``."""
+    shape = (n_pods, n_intra)
+    e_coord = owner % n_intra
+    p_coord = owner // n_intra
+    xb, (pc_b, slot_b), _, drop1 = bucket(vals[..., None], e_coord, valid,
+                                          [p_coord, slot_ids], n_intra, cap1,
+                                          impl=impl)
+    recv1, meta1, sig1 = _a2a_with_signal(xb, [pc_b, slot_b], shape, 1,
+                                          signal)
+    v1, (pc1, slot1) = _unpack_signalled(recv1, meta1)
+    xb2, (slot2_b,), _, drop2 = bucket(v1, pc1.clamp(min=0), pc1 >= 0,
+                                       [slot1], n_pods, cap2, impl=impl)
+    recv2, meta2, gsignal = _a2a_with_signal(xb2, [slot2_b], shape, 0, sig1)
+    return recv2, meta2, drop1 + drop2, gsignal
+
+
+def local_route_reduce(vals, slot_ids, dest, valid, n_buckets, cap, n_local,
+                       op, impl=None):
+    """One whole round whose producer and consumer are one shard
+    (``repro/core/routing.py:420-456``): rank each task within its
+    destination bucket (:func:`positions_by_dest`: the rank kernel on
+    ``"pallas"``), keep the first ``cap`` a bucket, and fold the kept
+    tasks straight into ``[S, n_local]`` with :func:`reduce_received`,
+    dropped tasks' slots at -1: no bucket array, no wire. Only for
+    ``min`` and ``store``, which do not depend on order, so the result
+    and the drop count are bit-identical to :func:`bucket` +
+    :func:`reduce_received`. Returns ``(y [S, n_local], n_drop [S])``."""
+    if op not in ("min", "store"):
+        raise ValueError(f"local_route_reduce needs an order-insensitive "
+                         f"reduce, got {op!r}")
+    valid = valid & (dest >= 0) & (dest < n_buckets)   # as bucket() admits
+    pos = positions_by_dest(dest, valid, n_buckets, impl=impl)
+    keep = valid & (pos < cap)
+    n_drop = (valid & ~keep).sum(1, dtype=torch.int32)
+    seg = torch.where(keep, slot_ids.to(torch.int32), -1)
+    y = reduce_received(seg, vals.to(torch.float32), n_local, op, impl=impl)
+    return y, n_drop
 
 
 def reduce_received(recv_slot, recv_val, n_local, op, impl=None):

@@ -1,21 +1,22 @@
 """The TaskProgram runtime on virtual shards (counterpart of
-``repro/sparse/program.py:64-506, 606-964``, lockstep rounds).
+``repro/sparse/program.py:64-964``).
 
 A :class:`TaskProgram` is an app's spec (payload rule, reduce op, update
 rule, task class, or a one-round task stream); :func:`run_program` owns
 queue and capacity resolution, the flat vs pod/portal path, the cyclic
-owner layout, the lockstep round loop with per-round :class:`AppStats`,
-the one-round owner-routed scatter (:func:`dcra_scatter`) of stream
-programs, and a cache of round functions keyed like the reference's
-compile cache.
+owner layout, the round loops with per-round :class:`AppStats` (lockstep,
+or pipelined: see :func:`_build_graph_fn`), the one-round owner-routed
+scatter (:func:`dcra_scatter`) of stream programs, and a cache of round
+functions keyed like the reference's compile cache. A graph program's
+launch is a device future (:func:`launch_program`,
+:class:`ProgramLaunch`); :func:`run_program` is its ``result()``.
 
 Layout: vertex ``v`` lives on shard ``v % S`` at local slot ``v // S``;
 edges are partitioned by the owner of their source vertex. Shard state
 is ``[S, n_local]`` float32, edges ``[S, E_max]``.
 
-Not in this slice: ``round_mode="pipelined"`` for graph programs,
-``config="auto"``, device futures (``launch_program``) and the analytic
-twin; each raises or is absent, and ``ROADMAP.md`` queues it.
+Not in this slice: ``config="auto"`` and the analytic twin; the first
+raises, the second is absent, and ``ROADMAP.md`` queues both.
 """
 from __future__ import annotations
 
@@ -27,8 +28,10 @@ import torch
 
 from ..core.fabric import Fabric
 from ..core.queues import QueueConfig
-from ..core.routing import (owner_route, owner_route_hier, reduce_received,
-                            resolve_caps, resolve_flat_cap,
+from ..core.routing import (local_route_reduce, owner_route,
+                            owner_route_finish, owner_route_hier,
+                            owner_route_hier_start, owner_route_start,
+                            reduce_received, resolve_caps, resolve_flat_cap,
                             resolve_route_impl)
 from .options import LaunchOptions, resolve_options
 
@@ -229,6 +232,28 @@ def cache_keys() -> Tuple[tuple, ...]:
     return tuple(_CACHE)
 
 
+#: blocking host reads of device values inside the round loops since the
+#: last :func:`reset_host_reads` (the lockstep loop's convergence test,
+#: the pipelined loop's wait on a flag); ``chip_smoke.py`` reads it
+HOST_READS = {"reads": 0}
+
+
+def reset_host_reads() -> None:
+    HOST_READS["reads"] = 0
+
+
+def prewarm_program(prog: TaskProgram, data, fabric: Fabric, **kwargs
+                    ) -> Tuple[tuple, ...]:
+    """Build the round function of one (program, shape class, fabric)
+    before traffic arrives: one throwaway :func:`run_program` launch
+    (``kwargs`` as for it) whose new cache keys come back, ``()`` when
+    the class was warm. Params in ``prog.init_only`` stay out of the
+    key, so one pre-warm covers every later root."""
+    before = set(_CACHE)
+    run_program(prog, data, fabric, **kwargs)
+    return tuple(k for k in _CACHE if k not in before)
+
+
 # ---------------------------------------------------------------------------
 # the one-round owner-routed scatter (stream programs; public API)
 # ---------------------------------------------------------------------------
@@ -301,34 +326,66 @@ def _build_scatter_fn(pods, n_dev, n_local, caps, op, impl):
 # the runtime
 # ---------------------------------------------------------------------------
 
-def run_program(prog: TaskProgram, data, fabric: Fabric, *,
-                options: Optional[LaunchOptions] = None,
-                params: Optional[Mapping] = None,
-                max_rounds: Optional[int] = None, setup=None):
-    """Execute a :class:`TaskProgram` on ``fabric``. Graph programs return
-    ``(state_arrays, AppStats)``, each state unpacked to global order as
-    float64; ``setup`` is an optional precomputed :func:`_graph_setup`
-    of ``data`` on this fabric (same ``undirected`` and seed). Stream
-    programs return ``(y [n_items] numpy float32, AppStats)`` of one
-    round."""
-    opts = resolve_options(options)
+def _check_launch(opts: LaunchOptions, fabric) -> None:
     if not isinstance(fabric, Fabric):
         raise TypeError(f"fabric must be a repro_torch Fabric, got "
                         f"{type(fabric).__name__}")
     if opts.config is not None:
         raise NotImplementedError(
             "config= needs the DSE/auto-configuration stack, not ported yet "
-            "(ROADMAP queue 1, item 10)")
+            "(ROADMAP queue 1, item 2)")
+
+
+def run_program(prog: TaskProgram, data, fabric: Fabric, *,
+                options: Optional[LaunchOptions] = None,
+                params: Optional[Mapping] = None,
+                max_rounds: Optional[int] = None, setup=None,
+                donate_states: bool = False):
+    """Execute a :class:`TaskProgram` on ``fabric``. Graph programs return
+    ``(state_arrays, AppStats)``, each state unpacked to global order as
+    float64: the :meth:`ProgramLaunch.result` of :func:`launch_program`
+    (``setup`` and ``donate_states`` as there). Stream programs return
+    ``(y [n_items] numpy float32, AppStats)`` of one round.
+    ``options.round_mode="pipelined"`` selects the pipelined round loop:
+    the same states, rounds and per-round stats as lockstep."""
+    opts = resolve_options(options)
+    _check_launch(opts, fabric)
     if prog.mode == "single":
         return _launch_stream(prog, data, fabric, opts, dict(params or {}))
     if prog.mode not in ("while", "fixed"):
         raise ValueError(f"unknown program mode {prog.mode!r}")
-    if opts.round_mode != "lockstep":
-        raise NotImplementedError(
-            "round_mode='pipelined' is not ported yet (ROADMAP queue 1, "
-            "item 5)")
     return _launch_graph(prog, data, fabric, opts, dict(params or {}),
-                         max_rounds, setup)
+                         max_rounds, setup, donate_states).result()
+
+
+def launch_program(prog: TaskProgram, data, fabric: Fabric, *,
+                   options: Optional[LaunchOptions] = None,
+                   params: Optional[Mapping] = None,
+                   max_rounds: Optional[int] = None, setup=None,
+                   donate_states: bool = False) -> "ProgramLaunch":
+    """Launch a graph :class:`TaskProgram` without waiting for it: a
+    :class:`ProgramLaunch` device future (``repro/sparse/program.py:
+    573-603``). Cache key, admission and results are those of
+    :func:`run_program`; only when the host waits differs. A
+    ``mode="while"`` launch decides on the host when to stop, so it
+    returns once its last round is enqueued, which is after the card
+    has finished the round before it; a fixed one as soon as its rounds
+    are enqueued.
+
+    ``setup`` is a precomputed :func:`_graph_setup` of ``data`` on this
+    fabric, as numpy (copied to the card through pinned staging) or
+    :func:`resident_setup` (already there). ``donate_states=True`` gives
+    the launch's input state tensors to its round loop, which reuses
+    them for its states instead of holding them to the end (see
+    :func:`_build_graph_fn`); it joins the cache key, only when set. Stream
+    programs have no launch future: this raises for them."""
+    if prog.mode == "single":
+        raise ValueError("launch_program handles graph programs only; "
+                         "stream programs run through run_program")
+    opts = resolve_options(options)
+    _check_launch(opts, fabric)
+    return _launch_graph(prog, data, fabric, opts, dict(params or {}),
+                         max_rounds, setup, donate_states)
 
 
 def _launch_stream(prog: TaskProgram, data, fab: Fabric,
@@ -359,14 +416,98 @@ def _launch_stream(prog: TaskProgram, data, fab: Fabric,
                        drops=np.array([int(dropped)], np.int64))
 
 
+# ---------------------------------------------------------------------------
+# graph launches: edges and states onto the device, the device future
+# ---------------------------------------------------------------------------
+
+def resident_setup(setup, device) -> tuple:
+    """A :func:`_graph_setup` moved onto ``device`` once: ``(n_local,
+    src_slot [S, E_max] int64, dst [S, E_max] int32, w [S, E_max]
+    float32, E_max)``. Launches given it as ``setup=`` copy no edges."""
+    n_local, src_slot, dst, w, e_max = setup
+    device = torch.device(device)
+
+    def on(a):
+        return torch.as_tensor(a).to(device).view(-1, e_max)
+    return n_local, on(src_slot).long(), on(dst), on(w), e_max
+
+
+def _to_device(arrays, device):
+    """Host arrays onto ``device``: on the card through pinned staging
+    and non-blocking copies, which return before the card has them (the
+    staging must live until the launch's event: the second return
+    value); on the CPU, views of the arrays."""
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if device.type != "cuda":
+        return host, ()
+    pins = [torch.empty(h.shape, dtype=h.dtype, pin_memory=True).copy_(h)
+            for h in host]
+    return [p.to(device, non_blocking=True) for p in pins], tuple(pins)
+
+
+class ProgramLaunch:
+    """One graph-program launch in flight: a device future
+    (``repro/sparse/program.py:513-570``).
+
+    * :meth:`is_ready` polls, never blocks: the launch's CUDA event has
+      completed (always true on the CPU);
+    * :meth:`block` waits for the device (``event.synchronize()``); a
+      fault of the launch surfaces here and poisons this launch only;
+    * :meth:`result` blocks, copies to the host and unpacks:
+      ``(state_arrays, AppStats)``, bit-identical to :func:`run_program`.
+      Idempotent; the device tensors and the staging are released on the
+      first call."""
+
+    def __init__(self, fab: Fabric, outs, n: int, n_states: int,
+                 staging=()):
+        self._fab, self._outs, self._staging = fab, outs, staging
+        self._n, self._n_states = n, n_states
+        self._result = None
+        self._event = None
+        if fab.device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(fab.device))
+
+    def is_ready(self) -> bool:
+        if self._result is not None or self._event is None:
+            return True
+        return self._event.query()
+
+    def block(self) -> "ProgramLaunch":
+        if self._result is None and self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def result(self):
+        if self._result is None:
+            self.block()
+            outs = self._outs
+            state, (r, msgs, drops) = outs[:self._n_states], outs[-3:]
+            r = int(r)
+            stats = AppStats(
+                rounds=r, messages=msgs[:r].cpu().numpy().astype(np.int64),
+                drops=drops[:r].cpu().numpy().astype(np.int64))
+            n_dev = self._fab.n_devices
+            states = tuple(np.asarray(from_owner_layout(
+                s.reshape(-1).cpu().numpy(), self._n, n_dev), np.float64)
+                for s in state)
+            self._result = (states, stats)
+            self._outs = self._staging = None
+        return self._result
+
+
 def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
-                  opts: LaunchOptions, params, max_rounds, setup):
+                  opts: LaunchOptions, params, max_rounds, setup,
+                  donate_states=False) -> ProgramLaunch:
+    """Resolve, hit the round-function cache and enqueue the launch; the
+    :class:`ProgramLaunch` it returns has not waited for the device."""
     n_dev, n = fab.n_devices, g.n
     if setup is None:
         setup = _graph_setup(g, n_dev, undirected=prog.undirected,
                              seed=opts.seed)
     n_local, src_slot, dst, w, E_max = setup
-    if len(dst) != n_dev * E_max or n_local != -(-n // n_dev):
+    if (int(np.prod(dst.shape)) != n_dev * E_max
+            or n_local != -(-n // n_dev)):
         raise ValueError("setup= was packed for another graph or fabric")
     queues = _resolve_queues(opts, prog.task, prog.default_capacity_factor)
     caps, pods = resolve_caps(fab, queues, prog.task, E_max, opts.axis,
@@ -374,73 +515,217 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
     impl = resolve_route_impl(opts.route_impl if opts.route_impl is not None
                               else queues.route_impl)
     states0, fills = prog.init(g, params)
-    packed = tuple(np.asarray(owner_layout(s, n_dev, f)[0], np.float32)
-                   for s, f in zip(states0, fills))
+    packed = [np.asarray(owner_layout(s, n_dev, f)[0], np.float32)
+              for s, f in zip(states0, fills)]
     if prog.mode == "fixed":
         rounds = int(params["iters"])
     else:
         rounds = int(max_rounds if max_rounds is not None
                      else prog.max_rounds)
+    # no rounds, nothing to overlap (repro/sparse/program.py:743)
+    round_mode = opts.round_mode if rounds > 0 else "lockstep"
     kparams = {k: v for k, v in params.items() if k not in prog.init_only}
     key = (prog, n, n_dev, n_local, E_max, opts.axis, opts.pod_axis, pods,
-           caps, impl, rounds, opts.round_mode, len(packed),
+           caps, impl, rounds, round_mode, len(packed),
            tuple(sorted(kparams.items())), fab.fabric_key())
+    if donate_states:
+        key = key + ("donate",)
     fn = _cached(key, lambda: _build_graph_fn(
-        prog, pods, n_dev, n_local, n, caps, kparams, rounds, impl))
+        prog, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
+        round_mode, donate_states))
+    if isinstance(dst, torch.Tensor):
+        if dst.device != fab.device:
+            raise ValueError(f"setup= lies on {dst.device}, the fabric on "
+                             f"{fab.device}")
+        edges, pins = (src_slot, dst, w), ()
+    else:
+        edges, pins = _to_device((src_slot, dst, w), fab.device)
+        edges = [e.view(n_dev, E_max) for e in edges]
+        edges[0] = edges[0].long()
+    states, spins = _to_device(packed, fab.device)
+    states = [s.view(n_dev, -1) for s in states]   # donation empties it
+    outs = fn(*edges, states)
+    return ProgramLaunch(fab, outs, n, len(packed), pins + spins)
 
-    def to_dev(a):
-        return torch.from_numpy(a).to(fab.device).view(n_dev, -1)
 
-    state, r, msgs, drops = fn(to_dev(src_slot).long(), to_dev(dst),
-                               to_dev(w), *(to_dev(s) for s in packed))
-    stats = AppStats(rounds=r,
-                     messages=msgs[:r].cpu().numpy().astype(np.int64),
-                     drops=drops[:r].cpu().numpy().astype(np.int64))
-    states = tuple(np.asarray(from_owner_layout(
-        s.reshape(-1).cpu().numpy(), n, n_dev), np.float64) for s in state)
-    return states, stats
+class _HostFlags:
+    """Booleans the pipelined loop posts from the device and reads back
+    later: on the card a non-blocking copy into pinned host memory
+    behind a CUDA event, read after waiting on that event; on the CPU
+    read at once."""
+
+    def __init__(self, rounds: int, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._host = torch.zeros(max(rounds, 1), dtype=torch.bool,
+                                 pin_memory=self._cuda)
+        self._events = {}
+
+    def post(self, i: int, flag: torch.Tensor) -> None:
+        self._host[i].copy_(flag, non_blocking=self._cuda)
+        if self._cuda:
+            ev = self._events[i] = torch.cuda.Event()
+            ev.record()
+
+    def read(self, i: int) -> bool:
+        HOST_READS["reads"] += 1
+        if self._cuda:
+            self._events.pop(i).synchronize()
+        return bool(self._host[i])
 
 
 def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
-                    caps, params, rounds, impl):
-    """The lockstep round loop for one shape class: payload -> bucket ->
-    all_to_all -> receive-reduce -> update, with the global message and
-    drop counts per round. ``changed`` is read back to the host once per
-    round (pipelined rounds, which avoid that, are a later slice)."""
+                    caps, params, rounds, impl, round_mode="lockstep",
+                    donate_states=False):
+    """The round loop for one shape class. Two shapes, selected by
+    ``round_mode``, with the same states, rounds and per-round stats:
+
+    * ``"lockstep"``: payload -> bucket -> all_to_all -> receive-reduce
+      -> update, with the global message and drop counts per round; a
+      while-mode loop reads ``frontier.any()`` back to the host once a
+      round;
+    * ``"pipelined"`` (``repro/sparse/program.py:776-796``): round k's
+      exchange is produced at the tail of iteration k-1 and consumed at
+      the head of iteration k, the wire the carry between them. Message
+      and drop counts stay per shard and are summed once after the loop;
+      the global frontier count rides the exchange as a signal row
+      (:func:`owner_route_start`). Every iteration is gated by
+      ``is_real`` (round 0 always real, later ones while the frontier
+      they consume was non-empty), so an iteration after convergence
+      changes nothing. The host enqueues iteration k+1 before it reads
+      the flag iteration k computed (whether iteration k+1 is real), so
+      the card always has an iteration queued; a while-mode loop runs at
+      most ``rounds`` iterations and stops after the first unreal one,
+      as the reference's. On one flat shard with a min or store reduce
+      the receive-reduce folds into admission (:func:`local_route_reduce`,
+      ``fold_local``): no wire at all, the same gated loop.
+
+    A fixed-mode program runs the lockstep loop in either mode: it reads
+    nothing on the host, so on one stream "produce at the tail of k-1,
+    consume at the head of k" enqueues lockstep's operations in
+    lockstep's order, and its ``rounds`` rounds are the reference's
+    ``rounds - 1`` iterations and drain.
+
+    The round function takes the edges and a list of the input state
+    tensors ``[S, n_local]``. With ``donate_states`` it owns them: the
+    gated loop writes every iteration's states into them (``out=``), so
+    its outputs are the input tensors, and the lockstep loop empties the
+    list and lets go of them once round 0 has read them, so the
+    allocator hands their memory to later rounds. Either way no state is
+    copied, and the launch holds one state fewer at its peak."""
     CACHE_STATS["kernel_traces"] += 1
     ctx = Ctx(n=n, n_dev=n_dev, params=params, gsum=gsum)
+    fold_local = (round_mode == "pipelined" and pods is None
+                  and n_dev == 1 and prog.reduce_op in ("min", "store"))
+    pipelined = round_mode == "pipelined" and not fold_local
 
-    def run(src_slot, dst, w, *state):
+    def run(src_slot, dst, w, state_in):
         owner = dst.clamp(min=0) % n_dev
         slot = dst.clamp(min=0) // n_dev
         evalid = dst >= 0
+        dev = dst.device
+
+        def active_of(frontier):
+            return (torch.gather(frontier, 1, src_slot) & evalid
+                    if prog.active == "frontier" else evalid)
+
+        def payload(state):
+            return prog.payload(ctx, state, src_slot, w).to(torch.float32)
 
         def do_round(state, frontier):
-            active = (torch.gather(frontier, 1, src_slot) & evalid
-                      if prog.active == "frontier" else evalid)
-            vals = prog.payload(ctx, state, src_slot, w).to(torch.float32)
-            m = active.sum()
-            if pods is None:
-                recv_slot, recv_val, nd = owner_route(
-                    vals, slot, owner, active, n_dev, caps[0], impl=impl)
+            """One whole round; per-shard counts ``[S]``."""
+            active = active_of(frontier)
+            vals = payload(state)
+            m = active.sum(1, dtype=torch.int32)
+            if fold_local:
+                upd, nd = local_route_reduce(
+                    vals, slot, owner, active, n_dev, caps[0], n_local,
+                    prog.reduce_op, impl=impl)
             else:
-                recv_slot, recv_val, nd = owner_route_hier(
-                    vals, slot, owner, active, pods[0], pods[1], caps[0],
-                    caps[1], impl=impl)
-            upd = reduce_received(recv_slot, recv_val, n_local,
-                                  prog.reduce_op, impl=impl)
+                if pods is None:
+                    recv_slot, recv_val, nd = owner_route(
+                        vals, slot, owner, active, n_dev, caps[0], impl=impl)
+                else:
+                    recv_slot, recv_val, nd = owner_route_hier(
+                        vals, slot, owner, active, pods[0], pods[1], caps[0],
+                        caps[1], impl=impl)
+                upd = reduce_received(recv_slot, recv_val, n_local,
+                                      prog.reduce_op, impl=impl)
             state2, frontier2 = prog.update(ctx, state, frontier, upd)
-            return state2, frontier2, m, nd.sum()
+            return state2, frontier2, m, nd
 
-        msgs = torch.zeros(rounds, dtype=torch.int32, device=dst.device)
-        drops = torch.zeros(rounds, dtype=torch.int32, device=dst.device)
+        def produce(state, frontier):
+            """Round tail: payload, bucket and the exchange, the shard's
+            frontier count riding it: ``(recv, meta, m [S], nd [S],
+            gcnt [S])``."""
+            active = active_of(frontier)
+            vals = payload(state)
+            m = active.sum(1, dtype=torch.int32)
+            fcnt = frontier.sum(1, dtype=torch.int32)
+            if pods is None:
+                recv, meta, nd, gcnt = owner_route_start(
+                    vals, slot, owner, active, n_dev, caps[0], fcnt,
+                    impl=impl)
+            else:
+                recv, meta, nd, gcnt = owner_route_hier_start(
+                    vals, slot, owner, active, pods[0], pods[1], caps[0],
+                    caps[1], fcnt, impl=impl)
+            return recv, meta, m, nd, gcnt
+
+        def consume(recv, meta):
+            """Round head: the receive-reduce of the carried wire."""
+            recv_slot, recv_val = owner_route_finish(recv, meta)
+            return reduce_received(recv_slot, recv_val, n_local,
+                                   prog.reduce_op, impl=impl)
+
+        msgs = torch.zeros(rounds, n_dev, dtype=torch.int32, device=dev)
+        drops = torch.zeros(rounds, n_dev, dtype=torch.int32, device=dev)
+        state = tuple(state_in)
         frontier = prog.frontier0(ctx, state)
         r = 0
-        while r < rounds:
-            state, frontier, msgs[r], drops[r] = do_round(state, frontier)
-            r += 1
-            if prog.mode == "while" and not bool(frontier.any()):
-                break
-        return state, r, msgs, drops
+        if round_mode == "lockstep" or prog.mode == "fixed":
+            if donate_states:
+                state_in.clear()       # round 0's update lets go of them
+            while r < rounds:
+                state, frontier, msgs[r], drops[r] = do_round(state, frontier)
+                r += 1
+                if prog.mode == "while":
+                    HOST_READS["reads"] += 1
+                    if not bool(frontier.any()):
+                        break
+        else:                                      # pipelined, while
+            flags = _HostFlags(rounds, dev)
+            r = torch.zeros((), dtype=torch.int32, device=dev)
+            if pipelined:
+                recv, meta, m, nd, gcnt = produce(state, frontier)
+            for i in range(rounds):
+                if pipelined:
+                    upd = consume(recv, meta)
+                    state2, frontier2 = prog.update(ctx, state, frontier,
+                                                    upd)
+                else:
+                    state2, frontier2, m, nd = do_round(state, frontier)
+                # round 0 always runs; a later iteration is real while
+                # the frontier it consumed was non-empty
+                real = (torch.ones((), dtype=torch.bool, device=dev)
+                        if i == 0 else live)
+                state = tuple(torch.where(real, a, b,
+                                          out=b if donate_states else None)
+                              for a, b in zip(state2, state))
+                frontier = torch.where(real, frontier2, frontier)
+                msgs[i] = torch.where(real, m, 0)
+                drops[i] = torch.where(real, nd, 0)
+                r = r + real.to(torch.int32)
+                if i + 1 == rounds:
+                    break
+                if pipelined:
+                    recv, meta, m, nd, gcnt = produce(state, frontier)
+                    live = gcnt[0] > 0
+                else:
+                    live = frontier.any()
+                flags.post(i, live)
+                if i >= 1 and not flags.read(i - 1):
+                    break                  # iteration i was the unreal one
+        return (*state, r, msgs.sum(1, dtype=torch.int32),
+                drops.sum(1, dtype=torch.int32))
 
     return run

@@ -1,6 +1,7 @@
 """The seven apps as TaskPrograms on virtual shards (counterpart of
 ``repro/sparse/jax_apps.py:76-447``): BFS, SSSP, WCC, PageRank and
-k-core as graph programs, SpMV and histogram as one-round streams.
+k-core as graph programs, SpMV and histogram as one-round streams, and
+the serving tier's tenant-batched BFS and SSSP.
 
 Each graph rule sees the shard on the leading dimension: state
 ``[S, n_local]`` and ``src_slot [S, E_max]``, so a rule reads its
@@ -87,6 +88,24 @@ def _dist_init(g, params):
     return (dist,), (np.inf,)
 
 
+def _multi_root_init(g, params):
+    """Tenant-column init (``repro/sparse/jax_apps.py:156-173``): ``g`` is
+    a tenant-expanded graph (vertex ``t * n + v`` is base vertex ``v`` in
+    tenant ``t``'s column, :func:`repro_torch.serve.batching.tenant_graph`)
+    and ``params["roots"]`` holds one root per tenant. A root outside
+    ``[0, n)`` raises: it would seed another tenant's column."""
+    roots = params["roots"]
+    n = g.n // len(roots)
+    dist = np.full(g.n, np.inf)
+    for t, root in enumerate(roots):
+        r = int(root)
+        if not 0 <= r < n:
+            raise ValueError(
+                f"root {root} out of range [0, {n}) for tenant column {t}")
+        dist[t * n + r] = 0.0
+    return (dist,), (np.inf,)
+
+
 def _label_init(g, params):
     return (np.arange(g.n, dtype=np.float64),), (np.inf,)
 
@@ -124,6 +143,19 @@ SSSP = TaskProgram(name="sssp", reduce_op="min", payload=_weight_payload,
                    init=_dist_init, frontier0=_finite_frontier,
                    update=_min_update, max_rounds=256, init_only=("root",))
 
+# the serving tier's fused multi-root launches: BFS's and SSSP's rules,
+# one root per tenant column; roots are init-only, so every batch of one
+# shape class reuses one round function
+BATCHED_BFS = TaskProgram(name="bfs_batched", reduce_op="min",
+                          payload=_hops_payload, init=_multi_root_init,
+                          frontier0=_finite_frontier, update=_min_update,
+                          init_only=("roots",))
+
+BATCHED_SSSP = TaskProgram(name="sssp_batched", reduce_op="min",
+                           payload=_weight_payload, init=_multi_root_init,
+                           frontier0=_finite_frontier, update=_min_update,
+                           max_rounds=256, init_only=("roots",))
+
 WCC = TaskProgram(name="wcc", reduce_op="min", payload=_label_payload,
                   init=_label_init, frontier0=_all_frontier,
                   update=_min_update, undirected=True)
@@ -144,11 +176,13 @@ def _pr_payload(ctx, state, src_slot, w):
 def _pr_update(ctx, state, frontier, upd):
     """The reference's f32 arithmetic in its order: ``inv_n`` is a float32
     scalar; the Python-float damping terms are rounded to float32 where
-    they meet a float32 tensor, as JAX's weak types are."""
+    they meet a float32 tensor, as JAX's weak types are. ``inv_n`` is
+    filled on the device: a tensor made from a host scalar would copy it
+    from pageable memory, which waits for the card every round."""
     rank, deg, vmask = state
     damping = ctx.params["damping"]
-    inv_n = torch.tensor(1.0 / ctx.n, dtype=torch.float32,
-                         device=rank.device)
+    inv_n = torch.full((), 1.0 / ctx.n, dtype=torch.float32,
+                       device=rank.device)
     dangling = ctx.gsum(torch.where((vmask > 0) & (deg == 0), rank, 0.0)
                         .sum(1, keepdim=True))
     rank2 = torch.where(vmask > 0, (1.0 - damping) * inv_n

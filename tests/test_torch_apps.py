@@ -273,8 +273,6 @@ def test_unported_paths_raise():
     fab = fabric_of((4,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dcra_bfs(g, 0, fab, options=LaunchOptions(config="auto"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcra_bfs(g, 0, fab, options=LaunchOptions(round_mode="pipelined"))
     from repro_torch.sparse.torch_apps import SPMV
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tprogram.run_program(SPMV, (g, np.ones(g.n)), fab,

@@ -48,6 +48,10 @@ bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')
 print('LOADED', len([k for k in sys.modules if k.startswith('repro_torch')]))
 assert not bad, bad
 assert 'triton' not in sys.modules
+for name in ('serve', 'serve.batching', 'serve.engine', 'serve.options',
+             'serve.resilience', 'serve.stats', 'runtime',
+             'runtime.fault_tolerance', 'sparse.program', 'core.routing'):
+    assert 'repro_torch.' + name in sys.modules, name
 """
 
 
@@ -56,7 +60,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", ISOLATION], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 15      # every module imported
+    assert int(out.stdout.split()[-1]) >= 36      # every module imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
