@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bfs-rounds [SRC]   # BFS flat 64's round only
+    python3 chip_smoke.py --rank-grid [SRC]    # the rank kernel's grid only
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -22,7 +23,11 @@ script exits non-zero with no result line:
    inputs 4 bytes off alignment; ranked on a payload ``WIDE_D`` wide,
    the input it serves) and the rank kernel, bit-identical at edge cases
    (1024 buckets, cap 1 and cap >= N, N = 0 and off the tile, drops) and
-   at the flat BFS round, staged over two runs; the reduce on both
+   at the flat BFS round, staged over two runs; the rank kernel
+   (``lookback``) over a grid of N x buckets (64 shards of 2^16, 2^20 and
+   E_max tasks, one shard of RMAT-22's every edge; 1, 64 and 1024
+   buckets), bit-identical and over two runs, with ``torch.cumsum`` beside
+   it at one bucket; the reduce on both
    designs (private; atomic off alignment)
    with whole, fractional and NaN payloads (a slot that received {+NaN,
    5} reads +inf under min, {-NaN, 5} reads 0 under store), n_local at
@@ -82,7 +87,8 @@ script exits non-zero with no result line:
    (both designs each);
 12. pipelined rounds on RMAT-22 (phase 2's packing): BFS flat 64, pod
    8 x 8 and on one shard (where the receive-reduce folds into
-   admission: the rank kernel and the reduce run, the scatter must not)
+   admission: the rank kernel, ``lookback``, and the reduce run, the
+   scatter must not)
    bit-identical to lockstep (states, rounds, message and drop
    streams); PageRank flat 64, 20 rounds, with lockstep's message and
    drop streams and ranks within twice phase 5's float32 bound of
@@ -109,8 +115,8 @@ and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
 ran ``staged`` only, and the reduce ``atomic`` (BFS, PageRank, the
 server: n_local 65,536; one shard: 4,194,304) or ``private`` (the routed
-histogram: 64). The rank kernel runs on one path: one shard's pipelined
-BFS. Every number the script prints about the card stands beside
+histogram: 64). The rank kernel runs on one path, one shard's pipelined
+BFS, on its one design (``lookback``, asserted the same way). Every number the script prints about the card stands beside
 ``nvidia-smi``'s name and power limit.
 The line before the last is the JSON kernel table (the gmm row carries
 its bf16 run under ``bf16_*`` keys, the flash row its float32 run under
@@ -150,8 +156,7 @@ REPLACES = {"bucket_rank": "src/repro/kernels/route.py:120",
             "gmm": "src/repro/kernels/moe_gmm.py:29",
             "flash_attention": "src/repro/kernels/flash_attention.py:66"}
 # substrings of each wrapper's CUDA kernels, for the profiler's table
-KERNEL_NAMES = {"bucket_rank": ("rank_count_kernel", "rank_scan_kernel",
-                                "rank_kernel"),
+KERNEL_NAMES = {"bucket_rank": ("rank_lookback_kernel",),
                 "bucket_scatter": ("fill_kernel", "scatter_kernel",
                                    "staged_count_kernel", "staged_scan_kernel",
                                    "staged_fill_kernel", "staged_place_kernel"),
@@ -170,9 +175,9 @@ WGMMA_LIBS = ("gmm", "flash_attention")
 #: kernels that must not spill (``-Xptxas -v``): the register-blocked ones
 NO_SPILL = ("gmm_blocked_kernel", "flash_blocked_kernel", "bsr_split_kernel",
             "staged_place_kernel", "reduce_private_kernel")
-#: designs each of ``plans_refused``'s launches covers: bucket scatter 2,
-#: reduce 2, gmm 4, flash 4, BSR 2
-PLAN_DESIGNS = 14
+#: designs each of ``plans_refused``'s launches covers: bucket rank 1,
+#: bucket scatter 2, reduce 2, gmm 4, flash 4, BSR 2
+PLAN_DESIGNS = 15
 CARD = ("cuda", 0)
 #: ``nvidia-smi``'s name and power limit of the card, beside every number
 SMI = "card not read"
@@ -203,6 +208,14 @@ GRID_LOCALS = (64, 1024, 8192, 16384, 32768, 58112, 65536)
 #: its payload and slots take at most GRID_WIDE_BYTES
 WIDE_D = 32
 GRID_WIDE_BYTES = 16 << 30
+#: the rank grid (phase 3): tasks a shard at 64 shards (and E_max), then
+#: every edge of RMAT-22 on one shard, by bucket counts; a share of valid
+#: tasks near the one-shard BFS round's (84,738,637 of 128,306,514)
+GRID_RANK_TASKS, GRID_RANK_BUCKETS = (1 << 16, 1 << 20), (1, 64, 1024)
+GRID_RANK_VALID = 0.66
+#: RMAT-22's E_max on 64 shards and its edge count (phase 2 prints both):
+#: the shapes ``--rank-grid`` runs without building the graph
+RMAT22_E_MAX, RMAT22_NNZ = 2_235_449, 128_306_514
 
 
 def log(*parts):
@@ -581,11 +594,15 @@ def main_shape_kernels(route, routing, setup, device):
         "plain_ms": cuda_ms(lambda: route.plain_bucket_rank(dest, valid, s),
                             2),
         "bound_ms": bound_ms(tasks * (4 + 1 + 4)), "bound_by": "bytes",
-        "library_ms": None}
+        "library_ms": None, "design": "lookback"}
+    ran_only(route.PATHS["bucket_rank"], "lookback", "bucket_rank")
     rows["bucket_rank"] = rank_row
-    log(f"kernel bucket_rank: S={s} N={e_max}: {rank_row['ms']:.4f} ms, "
-        f"plain {rank_row['plain_ms']:.4f} ms (no yardstick), bound "
-        f"{rank_row['bound_ms']:.4f} ms ({tasks * 9} B / 3.35 TB/s)")
+    log(f"kernel bucket_rank: S={s} N={e_max}, {s} buckets: lookback "
+        f"{rank_row['ms']:.4f} ms "
+        f"({rank_row['ms'] / rank_row['bound_ms']:.3f}x its bound), plain "
+        f"{rank_row['plain_ms']:.4f} ms (no yardstick), bound "
+        f"{rank_row['bound_ms']:.4f} ms ({tasks * 9} B / 3.35 TB/s) "
+        f"[{SMI}]")
 
     route.reset_launches()
     r = row("bucket_scatter", 0.0,
@@ -1037,6 +1054,88 @@ def reduce_add_timed(routing, device, ids, rows):
         f"scatter_reduce_ sum {r['add_library_ms']:.4f} ms, plain "
         f"{r['add_plain_ms']:.4f} ms (no yardstick); exact (whole numbers) "
         f"on both designs, equal to the plain version")
+
+
+def rank_grid(device, e_max, nnz):
+    """The rank kernel over ``GRID_RANK_TASKS`` and ``e_max`` tasks a shard
+    at 64 shards and ``nnz`` at one shard, by ``GRID_RANK_BUCKETS``:
+    dests uniform over the buckets, a share ``GRID_RANK_VALID`` valid,
+    from a seeded generator on the card. Each cell bit-identical to the
+    plain version and over two runs, timed (CUDA events, mean of 5) beside
+    its bound and, at one bucket, ``torch.cumsum(valid, 1,
+    dtype=torch.int32)`` (an inclusive scan; the exclusive rank is one
+    subtraction more). Works with any ``repro_torch`` whose ``bucket_rank``
+    has this signature (``--rank-grid SRC`` runs it on another tree).
+    Returns the cells."""
+    import torch
+    from repro_torch.kernels import route
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    cells = []
+    for s, n in [*((64, n) for n in (*GRID_RANK_TASKS, e_max)), (1, nnz)]:
+        r = torch.randint(0, 1 << 30, (s, n), generator=gen, device=device,
+                          dtype=torch.int32)
+        valid = torch.rand(s, n, generator=gen, device=device) \
+            < GRID_RANK_VALID
+        for nb in GRID_RANK_BUCKETS:
+            dest = r % nb
+            route.reset_launches()
+            got = route.bucket_rank(dest, valid, nb)
+            if not torch.equal(got, route.plain_bucket_rank(dest, valid,
+                                                            nb)):
+                raise AssertionError(f"rank grid: bucket_rank differs at "
+                                     f"S={s} N={n} nb={nb}")
+            cell = {"s": s, "n": n, "nb": nb,
+                    "ms": cuda_ms(lambda: route.bucket_rank(dest, valid, nb),
+                                  5),
+                    "bound_ms": bound_ms(s * n * (4 + 1 + 4)),
+                    "library_ms": None}
+            if not torch.equal(route.bucket_rank(dest, valid, nb), got):
+                raise AssertionError(f"rank grid: two runs differ at S={s} "
+                                     f"N={n} nb={nb}")
+            design = "kernel"
+            if "bucket_rank" in getattr(route, "PATHS", {}):
+                ran_only(route.PATHS["bucket_rank"], "lookback",
+                         "bucket_rank")
+                design = "lookback"
+            if nb == 1:
+                cell["library_ms"] = cuda_ms(
+                    lambda: torch.cumsum(valid, 1, dtype=torch.int32), 5)
+            cells.append(cell)
+            log(f"grid bucket_rank S={s} N={n} nb={nb}: {design} "
+                f"{cell['ms']:.4f} ms ({cell['ms'] / cell['bound_ms']:.3f}x "
+                f"its bound), bound {cell['bound_ms']:.4f} ms"
+                + (f", cumsum {cell['library_ms']:.4f} ms" if nb == 1 else "")
+                + f"; bit-identical to the plain version and over two runs "
+                f"[{SMI}]")
+            del dest, got
+        del r, valid
+        torch.cuda.empty_cache()
+    return cells
+
+
+def rank_grid_only(src):
+    """``--rank-grid [SRC]``: :func:`rank_grid` with the ``repro_torch``
+    found under ``SRC`` (default: this checkout's ``src``; another
+    checkout's, to compare two trees on one card) at RMAT-22's shapes,
+    with the card's name and power limit."""
+    global SMI
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    import torch
+    SMI = card_name()
+    log(f"rank-grid: repro_torch from {Path(repro_torch.__file__).parent} "
+        f"[{SMI}]")
+    rank_grid(torch.device(*CARD), RMAT22_E_MAX, RMAT22_NNZ)
+    return 0
+
+
+def card_name():
+    """``nvidia-smi``'s name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def route_grid(routing, device, e_max, rows):
@@ -1842,8 +1941,8 @@ def gmm_flash_edge_cases(device):
 
 
 def plans_refused(device):
-    """Each design of the bucket scatter, the reduce, gmm, flash attention
-    and the BSR SpMV launched through its C entry point with its own
+    """Each design of the bucket rank, the bucket scatter, the reduce, gmm,
+    flash attention and the BSR SpMV launched through its C entry point with its own
     launch plan (must succeed) and with each field of that plan altered
     (must be refused, nothing launched): :data:`PLAN_DESIGNS` designs, 7
     fields each. Returns the count refused."""
@@ -1869,6 +1968,15 @@ def plans_refused(device):
     s, n, nb, cap = 2, 5000, 4, 3000
     ints = torch.zeros(2, s, n, dtype=torch.int32, device=device)
     valid = torch.ones(s, n, dtype=torch.bool, device=device)
+    plan = route.bucket_rank_plan(s, n, nb)
+    status = torch.empty(route.rank_scratch_ints(plan), dtype=torch.int32,
+                         device=device)
+    pos = torch.empty(s, n, dtype=torch.int32, device=device)
+    each(plan, route.PATH_CODES["bucket_rank"][plan.path],
+         lambda c: library("route").dcra_bucket_rank(
+             ints[0].data_ptr(), valid.data_ptr(), s, n, nb,
+             status.data_ptr(), pos.data_ptr(), c, stream),
+         f"bucket_rank {plan.path}")
     slots = torch.empty(1, s, nb * cap, dtype=torch.int32, device=device)
     task_slot = torch.empty(s, n, dtype=torch.int32, device=device)
     n_drop = torch.empty(s, dtype=torch.int32, device=device)
@@ -2223,6 +2331,7 @@ def kernel_resources(recs):
 #: what one shard's pipelined BFS launches: the rank kernel and the reduce
 #: (``local_route_reduce``), never the scatter
 FOLD_KERNELS = ("bucket_rank", "reduce_received")
+FOLD_DESIGNS = {"bucket_rank": "lookback", "reduce_received": "atomic"}
 
 
 def timed_launches(run, reps=3):
@@ -2304,30 +2413,39 @@ def rank_at_fold(route, setup1, want, device):
     """``bucket_rank`` at the shape its path gives it, one shard's
     pipelined BFS: every edge of RMAT-22 on one shard, one bucket, the
     active tasks of BFS's busiest round (the edges whose source is one
-    hop from the root). Bit-identical to the plain version; its row's
-    times and bound."""
+    hop from the root). Bit-identical to the plain version and over two
+    runs, on the lookback design; its row's times, bound and the nearest
+    library call, ``torch.cumsum(valid, 1, dtype=torch.int32)`` (an
+    inclusive scan: the exclusive rank is one subtraction more)."""
     import torch
     _, src_slot, dst, _, e_max = setup1
     dest = torch.zeros(1, e_max, dtype=torch.int32, device=device)
     hop = torch.from_numpy(want == 1).to(device)
     valid = ((hop[torch.from_numpy(src_slot).to(device).long()])
              & (torch.from_numpy(dst).to(device) >= 0)).view(1, e_max)
+    route.reset_launches()
     got = route.bucket_rank(dest, valid, 1)
     plain = route.plain_bucket_rank(dest, valid, 1)
-    if not torch.equal(got, plain):
+    if not (torch.equal(got, plain)
+            and torch.equal(route.bucket_rank(dest, valid, 1), got)):
         raise AssertionError("bucket_rank at one shard's BFS round differs "
-                             "from its plain version")
+                             "from its plain version or between two runs")
     del got, plain
     active = int(valid.sum())
     out = {"ms": cuda_ms(lambda: route.bucket_rank(dest, valid, 1), 5),
            "plain_ms": cuda_ms(lambda: route.plain_bucket_rank(dest, valid,
                                                                 1), 2),
+           "library_ms": cuda_ms(
+               lambda: torch.cumsum(valid, 1, dtype=torch.int32), 5),
            "bound_ms": bound_ms(e_max * (4 + 1 + 4)), "max_abs_err": 0.0}
+    ran_only(route.PATHS["bucket_rank"], "lookback", "bucket_rank")
     log(f"kernel bucket_rank at one shard's BFS round (S=1 N={e_max}, 1 "
-        f"bucket, {active} active): {out['ms']:.4f} ms, plain "
-        f"{out['plain_ms']:.4f} ms (no yardstick), bound "
-        f"{out['bound_ms']:.4f} ms ({e_max * 9} B / 3.35 TB/s); "
-        f"bit-identical to the plain version [{SMI}]")
+        f"bucket, {active} active): lookback {out['ms']:.4f} ms "
+        f"({out['ms'] / out['bound_ms']:.3f}x its bound), plain "
+        f"{out['plain_ms']:.4f} ms (no yardstick), cumsum "
+        f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({e_max * 9} B / 3.35 TB/s); bit-identical to the plain version "
+        f"and over two runs [{SMI}]")
     reduce_at_fold(route, want, src_slot, dst, valid, device)
     torch.cuda.empty_cache()
     return out
@@ -2403,8 +2521,7 @@ def run_pipelined(g, root, want, setup, device, totals, pagerank):
             fold = layout == "1 shard" and mode == "pipelined"
             with MainPath(f"BFS {layout} {mode}",
                           FOLD_KERNELS if fold else ROUTE_KERNELS, totals,
-                          {"reduce_received": "atomic"} if fold
-                          else STAGED_ATOMIC) as path:
+                          FOLD_DESIGNS if fold else STAGED_ATOMIC) as path:
                 runs[mode] = run()
             if fold and path.launches["bucket_scatter"]:
                 raise AssertionError(f"BFS 1 shard pipelined: the scatter "
@@ -2728,6 +2845,9 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--bfs-rounds"]:
         return bfs_rounds(sys.argv[2] if len(sys.argv) > 2 else ROOT / "src")
+    if sys.argv[1:2] == ["--rank-grid"]:
+        return rank_grid_only(sys.argv[2] if len(sys.argv) > 2
+                              else ROOT / "src")
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import routing
@@ -2741,10 +2861,7 @@ def main() -> int:
 
     # ---- 1: card + build ---------------------------------------------------
     global SMI
-    smi = SMI = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = SMI = card_name()
     device = torch.device(*CARD)
     name = torch.cuda.get_device_name(0)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2788,6 +2905,7 @@ def main() -> int:
     del ids
     torch.cuda.empty_cache()
     route_grid(routing, device, setup[-1], rows)
+    rows["bucket_rank"]["grid"] = rank_grid(device, setup[-1], g.nnz)
     t0 = phase("3 (kernels vs plain)", t0)
 
     # ---- 4: BFS on RMAT-22 -------------------------------------------------

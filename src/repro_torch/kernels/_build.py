@@ -34,8 +34,7 @@ _F32 = ctypes.c_float
 #: C entry points of each source (``csrc/<name>.cu``) and their arguments
 _SIGNATURES = {
     "route": {
-        "dcra_rank_tile": (),
-        "dcra_bucket_rank": (_P, _P, _I64, _I64, _I32, _P, _P, _P),
+        "dcra_bucket_rank": (_P, _P, _I64, _I64, _I32, _P, _P, _P, _P),
         "dcra_bucket_scatter": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
                                 _I32, _I64, _P, _P, _P, _P, _P, _P, _P),
         "dcra_reduce_received": (_P, _P, _I64, _I64, _I64, _I32, _P, _P,

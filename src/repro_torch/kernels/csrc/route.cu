@@ -12,10 +12,11 @@
 // Offsets into the [S, ...] arrays are computed in int64: at RMAT-22 on
 // 64 shards the bucket arrays hold ~5.7e8 slots.
 //
-// bucket_scatter and reduce_received each have two designs, chosen by the
-// wrapper's launch plan (kernels/route.py) from the inputs alone; their
-// entry points refuse a plan whose rows, grid, threads, stages or shared
-// memory differ from the geometry they compute (sm90::plan_is):
+// Each entry point launches the design of the wrapper's launch plan
+// (kernels/route.py), chosen from the inputs alone, and refuses a plan
+// whose rows, grid, threads, stages or shared memory differ from the
+// geometry it computes (sm90::plan_is). bucket_rank has one design,
+// lookback (one pass, decoupled look-back); the others have two each:
 //  * bucket_scatter: staged (rank, capacity test and scatter fused, every
 //    slot written once) or ranked (the bucket_rank kernel, a fill of every
 //    slot, then one store a kept task);
@@ -25,30 +26,20 @@
 
 namespace {
 
-constexpr int kRankTile = 1024;               // tasks per block, one a thread
-constexpr int kRankWarps = kRankTile / 32;
 constexpr int kThreads = 256;                 // scatter / reduce / fill
 constexpr int64_t kSmemLimit = 232448;        // a block's shared memory
 constexpr int kTargetBlocks = 8 * 132;        // 8 blocks on each of 132 SMs
 
-// ---------------------------------------------------------------------------
-// bucket_rank — replaces src/repro/kernels/route.py:bucket_rank_pallas
-// (_rank_kernel). pos[s, i] = number of valid j < i in shard s with
-// dest[s, j] == dest[s, i]; 0 for an invalid task.
-//
-// Bound: reads dest (4 B) + valid (1 B), writes pos (4 B) per task.
-// The TPU kernel walks the tiles in order and carries the per-destination
-// counts in VMEM; blocks on Hopper run in no order, and atomic counters
-// would give an arbitrary, not a stable, rank. So: pass 1 counts each
-// destination per 1024-task tile (shared-memory atomics), pass 2 turns
-// the [S, B, tiles] counts into exclusive prefixes over tiles (one warp
-// per (shard, destination) row), pass 3 ranks within the tile with
-// __match_any_sync + popc of the lower lanes, plus the counts of the
-// earlier warps of the tile. Passes 1 and 3 read the tasks once each;
-// the tile counts are S*B*N/1024 ints, a small fraction of the stream.
-// The ranked design of bucket_scatter runs it; the staged one ranks in
-// its own passes.
-// ---------------------------------------------------------------------------
+// the lanes of the warp whose key equals this lane's (key < 2^bits)
+__device__ __forceinline__ unsigned warp_peers(int key, int bits) {
+  unsigned peers = 0xffffffffu;
+  for (int b = 0; b < bits; ++b) {
+    const bool set = (key >> b) & 1;
+    const unsigned vote = __ballot_sync(0xffffffffu, set);
+    peers &= set ? vote : ~vote;
+  }
+  return peers;
+}
 
 __device__ __forceinline__ int32_t task_dest(const int32_t* dest,
                                              const uint8_t* valid, int64_t g,
@@ -57,69 +48,372 @@ __device__ __forceinline__ int32_t task_dest(const int32_t* dest,
   return (valid[g] && d >= 0 && d < nb) ? d : -1;
 }
 
-__global__ void rank_count_kernel(const int32_t* __restrict__ dest,
-                                  const uint8_t* __restrict__ valid,
-                                  int64_t n, int nb, int tiles,
-                                  int32_t* __restrict__ tile_counts) {
-  extern __shared__ int32_t cnt[];                         // [nb]
-  const int t = blockIdx.x, s = blockIdx.y;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) cnt[b] = 0;
-  __syncthreads();
-  const int64_t i = (int64_t)t * kRankTile + threadIdx.x;
-  if (i < n) {
-    const int32_t d = task_dest(dest, valid, (int64_t)s * n + i, nb);
-    if (d >= 0) atomicAdd(&cnt[d], 1);
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x)
-    tile_counts[((int64_t)s * nb + b) * tiles + t] = cnt[b];
+// ---------------------------------------------------------------------------
+// bucket_rank — replaces src/repro/kernels/route.py:bucket_rank_pallas
+// (_rank_kernel). pos[s, i] = number of valid j < i in shard s with
+// dest[s, j] == dest[s, i]; 0 for an invalid task or a dest outside
+// [0, nb).
+//
+// Bound: reads dest (4 B) + valid (1 B), writes pos (4 B) per task: 9 B.
+// The TPU kernel walks the tiles in order and carries the per-destination
+// counts in VMEM. Blocks on Hopper run in no order, and an atomic counter
+// a bucket would give an arbitrary rank, not a stable one. So one pass
+// with decoupled look-back (Merrill and Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back", 2016), one counter a bucket:
+//  * a block takes the next tile of 4096 tasks from an atomic counter
+//    (not blockIdx), so it only ever waits on tiles that blocks already
+//    running hold; each shard's tiles form their own chain, and the
+//    shards' chains interleave in that order (tile t of shard s is the
+//    (t * S + s)-th), so a tile's predecessor started S tiles earlier
+//    and has mostly published its inclusive prefix already;
+//  * a warp loads its 512 tasks as int4 (dest) and 4-byte words (valid),
+//    restages the keys through shared memory so that lane l holds tasks
+//    32k + l, and ranks them stably: a ballot of valid at nb == 1,
+//    ballots of the key bits (warp_peers) and a per-warp running count a
+//    bucket in shared memory above; an exclusive scan of the 8 warps'
+//    counts gives each warp's base and the tile's aggregate;
+//  * the block publishes the aggregate (AGGREGATE flag; tile 0 its
+//    inclusive prefix at once), warp 0 walks back over the predecessors'
+//    flags 32 at a time until an INCLUSIVE one, waiting only while a
+//    flag in its way reads 0, the block sums the aggregates it passed
+//    and that prefix (every bucket, its threads sharing the tiles and
+//    the buckets), publishes its own inclusive prefix, and stores pos
+//    coalesced. The ranks wait in shared memory, packed with their keys
+//    in place of the keys, so a block holds 16 tasks a thread in few
+//    registers (8 blocks an SM at one bucket, 5 above).
+// A tile's flag sits in a 64-bit status word, written with st.release.gpu
+// and read with ld.acquire.gpu. At one bucket the word also holds the
+// count, so one load reads both. Above it, one flag guards the tile's nb
+// values: the block's threads write them with st.cg, a barrier, then
+// thread 0's st.release.gpu (a gpu-scope release fence and the store;
+// the barrier puts the block's writes before it, the pattern of a
+// grid-wide barrier); on the other side lane 0's ld.acquire.gpu, a
+// barrier, and the block reads the values with ld.cg, which bypasses
+// the L1 (a weak load could return a stale line there). The prefixes are
+// int32, the aggregates uint16 (at most a tile), read 8 buckets a 16-byte
+// load, four loads in flight a thread. The task stream is read once; the
+// status, 8 B a tile and about 6*nb B more above one bucket, is the only
+// extra traffic. Tiles start on a 16-byte boundary of dest (a shard's
+// first tile is shorter by the row's misalignment), so a view at any
+// offset whose dest and valid sit equally off 16 bytes still takes the
+// vector loads; other views take scalar loads at the same positions. The
+// ranked design of bucket_scatter runs it; the staged one ranks in its
+// own passes.
+// ---------------------------------------------------------------------------
+
+constexpr int kRankTile = 4096;               // tasks a tile, one block each
+constexpr int kMaxBuckets = 1024;             // route.MAX_BUCKETS
+constexpr int64_t kRankMaxTasks = (int64_t(1) << 31) - 2 * 4096;  // a row
+constexpr int kRankThreads = 256;
+constexpr int kRankWarps = kRankThreads / 32;
+constexpr int kRankItems = kRankTile / kRankThreads;     // 16 a thread
+constexpr int kRankRun = kRankTile / kRankWarps;         // 512 a warp
+constexpr int kRankLoads = kRankItems / 4;               // int4 a lane
+constexpr int32_t kAggregate = 1, kInclusive = 2;        // tile flags
+constexpr int kKeyBits = 11;                  // key + 1 <= kMaxBuckets
+
+constexpr int kRankParts = 8 * kRankThreads;  // look-back partial sums
+
+// keys, then ranks [T], per-warp counts [warps, nb], the tile's
+// aggregate and exclusive prefix [2, nb], above one bucket the
+// look-back's partial sums [8 * threads], tile id and the nearest
+// inclusive tile [4]
+inline int64_t rank_smem(int nb) {
+  return 4 * ((int64_t)kRankTile + (int64_t)(kRankWarps + 2) * nb +
+              (nb > 1 ? kRankParts : 0) + 4);
 }
 
-__global__ void rank_scan_kernel(int32_t* __restrict__ tile_counts,
-                                 int64_t rows, int tiles) {
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32)
-                      + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;                                 // whole warp
-  int32_t* p = tile_counts + row * tiles;
-  int32_t carry = 0;
-  for (int base = 0; base < tiles; base += 32) {
-    const int k = base + lane;
-    const int32_t v = k < tiles ? p[k] : 0;
-    int32_t x = v;                                         // inclusive scan
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (k < tiles) p[k] = carry + x - v;
-    carry += __shfl_sync(0xffffffffu, x, 31);
+inline int64_t rank_tiles(int64_t n) {
+  return n > 0 ? (n + 3 + kRankTile - 1) / kRankTile : 0;
+}
+
+// int32 ahead of the per-bucket arrays: the counter, a pad, a 64-bit
+// status word a tile (all zeroed a launch); above one bucket an int32
+// inclusive prefix and a uint16 aggregate (at most a tile's 4096) a
+// bucket a tile follow
+__host__ __device__ inline int64_t rank_status_ints(int64_t n_tiles) {
+  return 2 + 2 * n_tiles;
+}
+
+// the int32 offset of the uint16 aggregates: after the words and the
+// inclusive prefixes, on a 16-byte boundary; a tile's row of them is
+// padded to a multiple of 8 buckets (16 bytes), read 8 at a time
+__host__ __device__ inline int64_t rank_aggs_offset(int64_t n_tiles, int nb) {
+  return (rank_status_ints(n_tiles) + n_tiles * nb + 3) & ~int64_t(3);
+}
+
+__host__ __device__ inline int rank_agg_row(int nb) { return (nb + 7) & ~7; }
+
+// a tile's status word: its flag in the high half and, at one bucket, its
+// count (aggregate or inclusive prefix) in the low half, so one load
+// reads both
+__device__ __forceinline__ uint64_t status_word(int32_t flag, int32_t v) {
+  return (uint64_t)(uint32_t)flag << 32 | (uint32_t)v;
+}
+
+__device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void add8(int32_t (&acc)[8], uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    acc[2 * u] += w[u] & 0xffff;
+    acc[2 * u + 1] += w[u] >> 16;
   }
 }
 
-__global__ void rank_kernel(const int32_t* __restrict__ dest,
-                            const uint8_t* __restrict__ valid,
-                            int64_t n, int nb, int tiles,
-                            const int32_t* __restrict__ tile_base,
-                            int32_t* __restrict__ pos) {
-  extern __shared__ int32_t wcnt[];                        // [warps, nb]
-  const int t = blockIdx.x, s = blockIdx.y;
+// the aggregates a[j * row + 8 grp + u], u < 8, of tiles j = j0, j0 +
+// step, ... below t, summed into acc: one 16-byte load a tile (a 16-byte
+// aligned, row % 8 == 0), four in flight
+__device__ __forceinline__ void sum_aggs8(const uint16_t* a, int row, int grp,
+                                          int j, int t, int step,
+                                          int32_t (&acc)[8]) {
+  const uint4* col = reinterpret_cast<const uint4*>(a) + grp;
+  const int64_t stride = row / 8;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) acc[u] = 0;
+  for (; j + 3 * step < t; j += 4 * step) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = __ldcg(col + (j + u * step) * stride);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) add8(acc, v[u]);
+  }
+  for (; j < t; j += step) add8(acc, __ldcg(col + j * stride));
+}
+
+// status: [1] tile counter, [1] pad, [S * tiles] status words, then at
+// nb > 1 [S * tiles, nb] int32 inclusive prefixes and [S * tiles, nb
+// padded to 8] uint16 aggregates; counter and words zeroed before the
+// launch. vec: dest and
+// valid sit equally far (shift elements) off a 16-byte boundary, so tiles
+// start on one and take vector loads.
+template <bool ONE>
+__global__ void __launch_bounds__(kRankThreads, ONE ? 8 : 5)
+rank_lookback_kernel(const int32_t* __restrict__ dest,
+                     const uint8_t* __restrict__ valid, int n, int nb,
+                     int key_bits, int tiles, int n_shards, bool vec,
+                     int shift, int32_t* __restrict__ status,
+                     int32_t* __restrict__ pos) {
+  extern __shared__ int32_t sm[];
+  int32_t* keys = sm;                                      // [T]
+  int32_t* wcnt = keys + kRankTile;                        // [warps, nb]
+  int32_t* agg = wcnt + kRankWarps * nb;                   // [nb]
+  int32_t* excl = agg + nb;                                // [nb]
+  int32_t* part = excl + nb;                               // [8 * threads]
+  int32_t* misc = part + (ONE ? 0 : kRankParts);           // [4]
+  const int64_t n_tiles = (int64_t)n_shards * tiles;
+  uint64_t* words = reinterpret_cast<uint64_t*>(status + 2);
+  int32_t* incls = status + rank_status_ints(n_tiles);     // [tiles, nb]
+  uint16_t* aggs =
+      reinterpret_cast<uint16_t*>(status + rank_aggs_offset(n_tiles, nb));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k = threadIdx.x; k < kRankWarps * nb; k += blockDim.x) wcnt[k] = 0;
+
+  if (threadIdx.x == 0) misc[0] = atomicAdd(status, 1);
+  if (!ONE)
+    for (int i = threadIdx.x; i < kRankWarps * nb; i += kRankThreads)
+      wcnt[i] = 0;
   __syncthreads();
-  const int64_t i = (int64_t)t * kRankTile + threadIdx.x;
-  const int32_t d = i < n ? task_dest(dest, valid, (int64_t)s * n + i, nb)
-                          : -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, d);
-  const unsigned lower = peers & ((1u << lane) - 1u);
-  if (d >= 0 && lower == 0) wcnt[warp * nb + d] = __popc(peers);
-  __syncthreads();
-  if (i < n) {
-    int32_t r = 0;
-    if (d >= 0) {
-      r = tile_base[((int64_t)s * nb + d) * tiles + t] + __popc(lower);
-      for (int w = 0; w < warp; ++w) r += wcnt[w * nb + d];
+  // tile t of shard s is the block's (g = t * S + s)-th: the shards'
+  // chains interleave, so a tile's predecessor started S tiles earlier
+  const int g = misc[0];
+  const int s = g % n_shards, t = g / n_shards;
+  const int64_t me = (int64_t)s * tiles + t;               // status index
+  const int64_t row = (int64_t)s * n;
+  dest += row, valid += row, pos += row;
+  // the row index of the tile's position 0: tiles start where dest does
+  // on a 16-byte boundary
+  const int first = t * kRankTile - (vec ? (int)((shift + row) & 3) : 0);
+
+  // this lane's 16 tasks: loads r at run positions 128r + 4l + j
+  int32_t dv[kRankItems];
+  uint32_t vv[kRankLoads];
+#pragma unroll
+  for (int r = 0; r < kRankLoads; ++r) {
+    const int i = first + warp * kRankRun + r * 128 + lane * 4;
+    if (vec && i >= 0 && i + 4 <= n) {
+      const int4 d4 = __ldg(reinterpret_cast<const int4*>(dest + i));
+      vv[r] = __ldg(reinterpret_cast<const uint32_t*>(valid + i));
+      dv[4 * r] = d4.x, dv[4 * r + 1] = d4.y, dv[4 * r + 2] = d4.z;
+      dv[4 * r + 3] = d4.w;
+    } else {
+      uint32_t v = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = i + j >= 0 && i + j < n;
+        dv[4 * r + j] = in ? __ldg(dest + i + j) : -1;
+        v |= (uint32_t)(in ? __ldg(valid + i + j) : 0) << (8 * j);
+      }
+      vv[r] = v;
     }
-    pos[(int64_t)s * n + i] = r;
+  }
+  // keys (-1: not ranked) to shared memory, read back striped below: lane
+  // l takes the warp's tasks 32k + l, k = 0..15, in array order
+  int32_t* run = keys + warp * kRankRun;
+#pragma unroll
+  for (int r = 0; r < kRankLoads; ++r) {
+    int32_t k4[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int32_t d = dv[4 * r + j];
+      k4[j] = ((vv[r] >> (8 * j)) & 0xff) && d >= 0 && d < nb ? d : -1;
+    }
+    *reinterpret_cast<int4*>(run + r * 128 + lane * 4) =
+        make_int4(k4[0], k4[1], k4[2], k4[3]);
+  }
+  __syncwarp();
+
+  // the rank within the warp's run (earlier rounds + lower peers), packed
+  // in place of its key: one bucket, the rank or -1; more, rank << 11 |
+  // key + 1 (each lane rewrites only its own entries)
+  const unsigned lower = (1u << lane) - 1u;
+  if (ONE) {
+    int32_t count = 0;
+#pragma unroll
+    for (int k = 0; k < kRankItems; ++k) {
+      const bool on = run[k * 32 + lane] >= 0;
+      const unsigned peers = __ballot_sync(0xffffffffu, on);
+      run[k * 32 + lane] = on ? count + __popc(peers & lower) : -1;
+      count += __popc(peers);
+    }
+    if (lane == 0) wcnt[warp] = count;
+  } else {
+    int32_t* mine = wcnt + warp * nb;
+#pragma unroll
+    for (int k = 0; k < kRankItems; ++k) {
+      const int32_t key = run[k * 32 + lane];
+      const unsigned peers = warp_peers(key + 1, key_bits);
+      const int32_t prior = key >= 0 ? mine[key] : 0;
+      __syncwarp();
+      if (key >= 0 && (peers & lower) == 0) mine[key] = prior + __popc(peers);
+      __syncwarp();
+      run[k * 32 + lane] =
+          (prior + __popc(peers & lower)) << kKeyBits | (key + 1);
+    }
+  }
+  __syncthreads();
+
+  // each bucket: the warps' exclusive prefix and the tile's aggregate,
+  // published (tile 0: as its inclusive prefix) by one release store of
+  // thread 0 after the block's value stores (the barrier orders them)
+  for (int b = threadIdx.x; b < nb; b += kRankThreads) {
+    int32_t sum = 0;
+#pragma unroll
+    for (int w = 0; w < kRankWarps; ++w) {
+      const int32_t c = wcnt[w * nb + b];
+      wcnt[w * nb + b] = sum;
+      sum += c;
+    }
+    agg[b] = sum;
+    if (t == 0) excl[b] = 0;
+    if (!ONE && t == 0) __stcg(incls + me * nb + b, sum);
+    if (!ONE && t > 0)
+      __stcg(aggs + me * rank_agg_row(nb) + b, (uint16_t)sum);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    st_release(words + me, status_word(t == 0 ? kInclusive : kAggregate,
+                                      ONE ? agg[0] : 0));
+
+  if (t > 0) {
+    // warp 0 walks back 32 tiles at a time: lane l reads tile lo - l. The
+    // window counts once every tile from lo to the nearest inclusive one
+    // has published. Lanes before the shard's first tile read as
+    // inclusive; tile 0 publishes its inclusive prefix at once, so the
+    // walk ends there at the latest and never counts them.
+    if (warp == 0) {
+      const uint64_t* row_words = words + (int64_t)s * tiles;
+      int lo = t - 1;
+      int32_t sum = 0;
+      for (;;) {
+        const int j = lo - lane;
+        const uint64_t w = j >= 0 ? ld_acquire(row_words + j)
+                                  : status_word(kInclusive, 0);
+        const int32_t f = (int32_t)(w >> 32);
+        const unsigned inc = __ballot_sync(0xffffffffu, f == kInclusive);
+        const unsigned zero = __ballot_sync(0xffffffffu, f == 0);
+        const unsigned near = inc & (0u - inc);
+        const unsigned need = inc ? near | (near - 1u) : 0xffffffffu;
+        if (zero & need) {
+          __nanosleep(20);
+          continue;                 // a predecessor has published nothing
+        }
+        if (ONE) {
+          int32_t v = (need >> lane) & 1 ? (int32_t)(uint32_t)w : 0;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          sum += v;
+        }
+        if (inc) {
+          if (lane == 0) {
+            misc[1] = lo - (__ffs(inc) - 1);
+            if (ONE) {
+              excl[0] = sum;
+              st_release(words + me, status_word(kInclusive, sum + agg[0]));
+            }
+          }
+          break;
+        }
+        lo -= 32;
+      }
+    }
+    __syncthreads();
+    if (!ONE) {
+      // the nearest inclusive prefix k and the aggregates of the span
+      // tiles between it and this one (often none: the predecessor, S
+      // tiles earlier, has published its prefix): a thread takes a group
+      // of 8 buckets (one 16-byte load; the row's padding is summed and
+      // never read) and every per-th tile, `per` threads a group (no more
+      // than the span), their partial sums through shared memory
+      const int k = misc[1], span = t - 1 - k;
+      const int row = rank_agg_row(nb), groups = row / 8;
+      const int most = groups < kRankThreads ? kRankThreads / groups : 1;
+      const int per = span < most ? span : most;
+      const uint16_t* ag = aggs + (int64_t)s * tiles * row;
+      for (int x = threadIdx.x; x < per * groups; x += kRankThreads) {
+        const int grp = x % groups, q = x / groups;
+        int32_t acc[8];
+        sum_aggs8(ag, row, grp, k + 1 + q, t, per, acc);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) part[q * row + grp * 8 + u] = acc[u];
+      }
+      if (per > 0) __syncthreads();
+      const int32_t* at = incls + ((int64_t)s * tiles + k) * nb;
+      for (int b = threadIdx.x; b < nb; b += kRankThreads) {
+        int32_t e = __ldcg(at + b);
+        for (int q = 0; q < per; ++q) e += part[q * row + b];
+        excl[b] = e;
+        __stcg(incls + me * nb + b, e + agg[b]);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(words + me, status_word(kInclusive, 0));
+    }
+  }
+
+  // pos: the tile's prefix + the earlier warps' counts + the rank in the
+  // warp, coalesced (the lanes of a store hold consecutive tasks)
+#pragma unroll
+  for (int k = 0; k < kRankItems; ++k) {
+    const int i = first + warp * kRankRun + k * 32 + lane;
+    if (i < 0 || i >= n) continue;
+    const int32_t rk = run[k * 32 + lane];
+    int32_t out = 0;
+    if (ONE) {
+      if (rk >= 0) out = excl[0] + wcnt[warp] + rk;
+    } else {
+      const int32_t key = (rk & ((1 << kKeyBits) - 1)) - 1;
+      if (key >= 0) out = excl[key] + wcnt[warp * nb + key] + (rk >> kKeyBits);
+    }
+    pos[i] = out;
   }
 }
 
@@ -241,17 +535,6 @@ constexpr int64_t kFillMinSlots = 4096;       // least slots a fill block
 inline int64_t staged_smem(int nb, int d_cols, int k) {
   return 4 * ((int64_t)(kStageWarps + 2) * nb + 16 +
               (int64_t)kStageTile * (1 + d_cols + k));
-}
-
-// the lanes of the warp whose key equals this lane's (key < 2^bits)
-__device__ __forceinline__ unsigned warp_peers(int key, int bits) {
-  unsigned peers = 0xffffffffu;
-  for (int b = 0; b < bits; ++b) {
-    const bool set = (key >> b) & 1;
-    const unsigned vote = __ballot_sync(0xffffffffu, set);
-    peers &= set ? vote : ~vote;
-  }
-  return peers;
 }
 
 // the destinations of this thread's 8 tasks of tile t (-1: none),
@@ -797,30 +1080,56 @@ void launch_private_op(const int32_t* slot, const float* val, dim3 grid,
 
 extern "C" {
 
-int dcra_rank_tile(void) { return kRankTile; }
-
-// dest, valid, pos: [n_shards, n]; tile_counts: scratch [n_shards, nb, tiles]
-// with tiles = ceil(n / dcra_rank_tile()).
+// dest, valid, pos: [n_shards, n], n <= 2^31 - 8192; status: 16-byte
+// aligned scratch of 2 + 2 * n_tiles int32 (counter, pad, a 64-bit status
+// word a tile), n_tiles = n_shards * ceil((n + 3) / 4096), and at nb > 1
+// the int32 prefixes [n_tiles, nb] and, from the next 16-byte boundary
+// (rank_aggs_offset), the uint16 aggregates [n_tiles, nb rounded up to a
+// multiple of 8]; the counter and the words are zeroed here, on the
+// stream, before the launch. plan: the wrapper's launch plan, its path 0
+// = lookback; launched only as planned.
 int dcra_bucket_rank(const int32_t* dest, const uint8_t* valid,
                      int64_t n_shards, int64_t n, int32_t nb,
-                     int32_t* tile_counts, int32_t* pos,
-                     cudaStream_t stream) {
-  if (n_shards == 0 || n == 0) return (int)cudaGetLastError();
-  const int tiles = (int)((n + kRankTile - 1) / kRankTile);
-  const dim3 grid(tiles, (unsigned)n_shards);
-  rank_count_kernel<<<grid, kRankTile, nb * sizeof(int32_t), stream>>>(
-      dest, valid, n, nb, tiles, tile_counts);
-  const int64_t rows = n_shards * nb;
-  const int warps_per_block = kThreads / 32;
-  rank_scan_kernel<<<blocks_for(rows, warps_per_block), kThreads, 0,
-                     stream>>>(tile_counts, rows, tiles);
-  const size_t smem = (size_t)kRankWarps * nb * sizeof(int32_t);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(rank_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  rank_kernel<<<grid, kRankTile, smem, stream>>>(dest, valid, n, nb, tiles,
-                                                 tile_counts, pos);
+                     int32_t* status, int32_t* pos,
+                     const sm90::LaunchPlan* plan, cudaStream_t stream) {
+  if (plan == nullptr || plan->path != 0 || nb < 1 || nb > kMaxBuckets ||
+      n_shards < 0 || n < 0 || n > kRankMaxTasks)
+    return (int)cudaErrorInvalidValue;
+  const int64_t tiles = rank_tiles(n);
+  const int64_t n_tiles = n_shards * tiles;
+  const int64_t smem = rank_smem(nb);
+  if (n_tiles >= (int64_t(1) << 31) ||
+      !sm90::plan_is(*plan, kRankTile, dim3((unsigned)n_tiles), kRankThreads,
+                     1, (size_t)smem))
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return (int)cudaGetLastError();
+  if (status == nullptr || reinterpret_cast<uintptr_t>(status) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      status, 0, rank_status_ints(n_tiles) * sizeof(int32_t), stream);
+  if (err != cudaSuccess) return (int)err;
+  const uintptr_t dp = reinterpret_cast<uintptr_t>(dest);
+  const int shift = (int)((dp >> 2) & 3);
+  const bool vec = (dp & 3) == 0 &&
+                   (int)(reinterpret_cast<uintptr_t>(valid) & 3) == shift;
+  const int key_bits = 32 - __builtin_clz((unsigned)nb);
+  if (nb == 1) {
+    rank_lookback_kernel<true><<<(unsigned)n_tiles, kRankThreads,
+                                 (size_t)smem, stream>>>(
+        dest, valid, (int)n, nb, key_bits, (int)tiles, (int)n_shards, vec,
+        shift, status, pos);
+  } else {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(rank_lookback_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    rank_lookback_kernel<false><<<(unsigned)n_tiles, kRankThreads,
+                                  (size_t)smem, stream>>>(
+        dest, valid, (int)n, nb, key_bits, (int)tiles, (int)n_shards, vec,
+        shift, status, pos);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ on its leading dimension: ``dest [S, N]`` holds the N tasks of each of
 the S shards, and one launch covers all of them.
 
 * :func:`bucket_rank` — stable rank of each task within its destination
-  bucket (``bucket_rank_pallas``);
+  bucket (``bucket_rank_pallas``), one pass with decoupled look-back
+  (:func:`bucket_rank_plan`);
 * :func:`bucket_scatter` — rank, capacity test and slot scatter
   (``bucket_scatter_pallas``): ``(xb, ints, task_slot, n_drop)``;
 * :func:`reduce_received` — the owner-side add/min/store fold
@@ -18,8 +19,10 @@ Any other device raises. The plain versions are also what the tests
 hold against the JAX package and what ``chip_smoke.py`` holds the
 kernels against on the card.
 
-``bucket_scatter`` and ``reduce_received`` each have two designs, picked
-by :func:`bucket_scatter_plan` (from shapes alone) and
+``bucket_rank`` has one design, ``lookback``, launched as
+:func:`bucket_rank_plan` says and counted in :data:`PATHS` like the
+others. ``bucket_scatter`` and ``reduce_received`` each have two
+designs, picked by :func:`bucket_scatter_plan` (from shapes alone) and
 :func:`reduce_received_plan` (from shapes and 16-byte alignment), and
 counted by design in :data:`PATHS`: ``staged`` (rank, capacity test and
 scatter fused, every slot written once) or ``ranked`` (the rank kernel,
@@ -36,13 +39,17 @@ from ._launch import LaunchPlan, aligned as _aligned, as_c
 
 ROUTE_IMPLS = ("pallas", "sort", "onehot")
 REDUCE_OPS = ("add", "min", "store")
-MAX_BUCKETS = 1024        # rank kernel keeps [32 warps, n_buckets] in smem
+MAX_BUCKETS = 1024        # staged and rank kernels keep [8 warps, B] in smem
 THREADS = 256             # ranked scatter, atomic reduce: one task a thread
 SMEM_LIMIT = 232_448      # shared memory one block may take on an H100
 #: a block's least count on the card: 8 on each of the H100's 132 SMs
 TARGET_BLOCKS = 8 * 132
 #: staged: tasks a block (256 threads of 8)
 STAGE_TILE = 2048
+#: lookback rank: tasks a tile, one block each (256 threads of 16), and
+#: the most tasks a shard (its row indices are int32)
+RANK_TILE = 4096
+RANK_MAX_TASKS = 2 ** 31 - 2 * RANK_TILE
 #: private: least entries a block, and the shared memory of one copy a
 #: warp (8 copies) above which a block keeps one copy
 PRIVATE_MIN_CHUNK = 4096
@@ -53,7 +60,8 @@ WARP_COPY_BYTES = 48 * 1024
 #: min on an H100, 1.28x at 58,112 by add: no crossover below this edge
 PRIVATE_MAX_LOCAL = SMEM_LIMIT // 4
 #: the designs of each wrapper, as the C entry points number them
-PATH_CODES = {"bucket_scatter": {"ranked": 0, "staged": 1},
+PATH_CODES = {"bucket_rank": {"lookback": 0},
+              "bucket_scatter": {"ranked": 0, "staged": 1},
               "reduce_received": {"atomic": 0, "private": 1}}
 
 #: kernel launches per wrapper since the last reset, in all and by design
@@ -255,6 +263,54 @@ def plain_reduce_received(recv_slot, recv_val, n_local, op):
 # launch plans
 # ---------------------------------------------------------------------------
 
+def rank_smem(n_buckets: int) -> int:
+    """Shared memory of a lookback rank block: the tile's keys, then
+    ranks, ``[T]``, per-warp counts ``[8, B]``, the tile's aggregate and
+    exclusive prefix ``2 * [B]``, above one bucket the look-back's partial
+    sums ``[8 * 256]``, and 4 ints (tile id, the nearest inclusive
+    tile)."""
+    parts = 8 * 256 if n_buckets > 1 else 0
+    return 4 * (RANK_TILE + (8 + 2) * n_buckets + parts + 4)
+
+
+def bucket_rank_plan(s: int, n: int, n_buckets: int) -> LaunchPlan:
+    """The launch of ``bucket_rank`` on ``dest [s, n]`` into
+    ``n_buckets``: one design, ``lookback``. Each shard's row is cut into
+    ``ceil((n + 3) / RANK_TILE)`` tiles (the first shortened by up to 3
+    tasks so that tiles start on a 16-byte boundary of dest), one
+    256-thread block a tile, grid ``(s * tiles,)``: a block takes its tile
+    from an atomic counter, in order (tile t of shard i is the (t * s +
+    i)-th), and the tiles of a shard chain their per-bucket prefixes by
+    decoupled look-back. ``tiles`` is (tasks a tile, n_buckets, tiles a
+    shard); the status scratch is :func:`rank_scratch_ints`. ``csrc/route.cu`` launches this plan as it
+    is and refuses one that differs from its own geometry. Negative sizes,
+    ``n`` past :data:`RANK_MAX_TASKS` and ``n_buckets`` outside ``[1,
+    MAX_BUCKETS]`` raise."""
+    if min(s, n) < 0 or n > RANK_MAX_TASKS:
+        raise ValueError(f"sizes must be in [0, {RANK_MAX_TASKS}], got "
+                         f"s={s} n={n}")
+    if not 1 <= n_buckets <= MAX_BUCKETS:
+        raise ValueError(f"n_buckets {n_buckets} outside [1, {MAX_BUCKETS}]")
+    tiles = -(-(n + 3) // RANK_TILE) if n else 0
+    return LaunchPlan("lookback", (RANK_TILE, n_buckets, tiles),
+                      (s * tiles, 1, 1), 256, 1, rank_smem(n_buckets))
+
+
+def rank_scratch_ints(plan: LaunchPlan) -> int:
+    """int32 of the lookback rank's status scratch: the tile counter and a
+    pad, a 64-bit status word a tile (its flag, and at one bucket its
+    count), and above one bucket each tile's inclusive prefix (int32) and
+    aggregate (uint16: at most a tile; rows padded to 8 buckets, read 8 a
+    16-byte load) a bucket. Only the counter and the words are zeroed a
+    launch."""
+    n_tiles, n_buckets = plan.grid[0], plan.tiles[1]
+    if n_buckets == 1:
+        return 2 + 2 * n_tiles
+    prefixes = 2 + 2 * n_tiles + n_tiles * n_buckets
+    # the aggregates: from a 16-byte boundary, rows of B padded to 8
+    return -(-prefixes // 4) * 4 + n_tiles * (-(-n_buckets // 8) * 4)
+
+
 def staged_smem(n_buckets: int, d: int, k: int) -> int:
     """Shared memory of a staged block: per-warp counts ``[8, B]``, the
     bucket offsets and tile bases ``2 * [B]``, 16 scan ints, and the
@@ -337,19 +393,20 @@ def reduce_received_plan(s: int, m: int, n_local: int, aligned: bool = True
 
 def _launch_rank(dest, valid_u8, n_buckets):
     from ._build import library
-    lib = library("route")
     s, n = dest.shape
-    tiles = -(-n // lib.dcra_rank_tile())
-    scratch = torch.empty(s * n_buckets * max(tiles, 1), dtype=torch.int32,
-                          device=dest.device)
     pos = torch.empty(s, n, dtype=torch.int32, device=dest.device)
-    if n == 0:
+    if s == 0 or n == 0:
         return pos
-    _raise_on(lib.dcra_bucket_rank(
+    plan = bucket_rank_plan(s, n, n_buckets)
+    status = torch.empty(rank_scratch_ints(plan), dtype=torch.int32,
+                         device=dest.device)
+    _raise_on(library("route").dcra_bucket_rank(
         dest.data_ptr(), valid_u8.data_ptr(), s, n, n_buckets,
-        scratch.data_ptr(), pos.data_ptr(), _stream(dest.device)),
-        "bucket_rank")
+        status.data_ptr(), pos.data_ptr(),
+        as_c(plan, PATH_CODES["bucket_rank"][plan.path]),
+        _stream(dest.device)), "bucket_rank")
     LAUNCHES["bucket_rank"] += 1
+    PATHS["bucket_rank"][plan.path] += 1
     return pos
 
 

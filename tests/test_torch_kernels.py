@@ -11,7 +11,8 @@ The others check the wrappers' device rule on the CPU (a CPU tensor
 takes the plain version and launches nothing, any device other than
 CUDA or CPU raises), the error bounds the card tests use, and the launch
 plans by which the bucket-scatter, reduce, gmm, flash-attention and BSR
-wrappers pick a kernel design and launch it.
+wrappers pick a kernel design and launch it, and the rank wrapper's
+launch plan.
 """
 import itertools
 import os
@@ -132,6 +133,80 @@ def test_cuda_bucket_kernels_match_plain(cuda_device, case, design, shifted):
     # the rank kernel where there are tasks
     assert troute.LAUNCHES["bucket_rank"] == (
         1 if design == "ranked" and n else 0)
+
+
+# (S, N, buckets, share valid, dests): N off the tile with about 1000 and
+# 200 tiles a shard (look-back chains across hundreds of tiles), 1024
+# buckets, every task in one bucket of 8, every task invalid, dests
+# outside [0, nb), N around one tile
+RANK_CASES = [(2, 1000 * 4096 + 17, 1, 0.7, "uniform"),
+              (3, 200 * 4096 + 5, 64, 0.9, "uniform"),
+              (1, 1_000_003, 1024, 0.8, "uniform"),
+              (4, 77_777, 8, 1.0, "one"), (3, 50_001, 16, 0.0, "uniform"),
+              (2, 60_001, 8, 0.9, "outside"), (5, 1, 1, 1.0, "uniform"),
+              (5, 4095, 2, 0.5, "uniform"), (5, 4096, 1, 0.5, "uniform"),
+              (5, 4097, 64, 0.5, "uniform")]
+
+
+def _rank_tasks(seed, s, n, nb, p_valid, dests, device):
+    rng = np.random.default_rng(seed)
+    if dests == "one":
+        dest = np.full((s, n), 3)
+    elif dests == "outside":
+        dest = rng.integers(-nb, 2 * nb, (s, n))
+    else:
+        dest = rng.integers(0, nb, (s, n))
+    valid = rng.random((s, n)) < p_valid
+    return (torch.from_numpy(dest.astype(np.int32)).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RANK_CASES)
+@pytest.mark.parametrize("offset", ["none", "both", "dest", "valid"])
+def test_cuda_bucket_rank_matches_plain(cuda_device, case, offset):
+    """The lookback rank bit-identical to the plain version on fresh
+    inputs, on copies of dest (4 bytes) and valid (1 byte) both one
+    element off (tiles shift with them and keep the vector loads), and
+    on a copy of either alone (scalar loads)."""
+    s, n, nb, p, dests = case
+    dest, valid = _rank_tasks(n + nb, s, n, nb, p, dests, cuda_device)
+    want = troute.plain_bucket_rank(dest, valid, nb)
+    if offset in ("both", "dest"):
+        dest = _off_alignment(dest)
+    if offset in ("both", "valid"):
+        valid = _off_alignment(valid)
+    troute.reset_launches()
+    got = troute.bucket_rank(dest, valid, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert troute.PATHS["bucket_rank"] == {"lookback": 1}
+    assert troute.LAUNCHES["bucket_rank"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_rank_launches_share_no_state(cuda_device):
+    """Each launch has its own status scratch: two back-to-back launches
+    on one stream with another between them, then one launch on each of
+    two streams at once, all bit-identical to the plain version, so two
+    runs are equal (no atomic decides a rank)."""
+    d1, v1 = _rank_tasks(21, 3, 700_001, 64, 0.8, "uniform", cuda_device)
+    d2, v2 = _rank_tasks(22, 1, 2_000_003, 1, 0.7, "uniform", cuda_device)
+    want1 = troute.plain_bucket_rank(d1, v1, 64)
+    want2 = troute.plain_bucket_rank(d2, v2, 1)
+    first = troute.bucket_rank(d1, v1, 64)
+    other = troute.bucket_rank(d2, v2, 1)
+    again = troute.bucket_rank(d1, v1, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want1) and torch.equal(again, want1)
+    assert torch.equal(other, want2)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(s1):
+        on1 = troute.bucket_rank(d1, v1, 64)
+    with torch.cuda.stream(s2):
+        on2 = troute.bucket_rank(d2, v2, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(on1, want1) and torch.equal(on2, want2)
 
 
 @pytest.mark.cuda
@@ -705,6 +780,58 @@ def test_bucket_scatter_plan(nb, k):
     assert troute.bucket_scatter_plan(64, 10, 1, 2, 1024, 1).path == "staged"
 
 
+RANK_PLAN_NS = [0, 1, troute.RANK_TILE - 1, troute.RANK_TILE,
+                troute.RANK_TILE + 1, 128_306_514]
+
+
+@pytest.mark.parametrize("nb", [1, 2, 64, 1024])
+@pytest.mark.parametrize("s", [1, 7, 64])
+def test_bucket_rank_plan(s, nb):
+    """One design, lookback: each shard's row in ceil((N + 3) / RANK_TILE)
+    tiles (the first may start up to 3 tasks before the row so that tiles
+    start on a 16-byte boundary of dest), which cover the row whatever
+    that shift; one 256-thread block a tile, S * tiles in all, in one
+    grid row under 2^31; the block's shared memory (keys, per-warp counts,
+    aggregate and prefix) fits; the status scratch is a counter and a pad,
+    a 64-bit word a tile and, above one bucket, an int32 prefix and a
+    uint16 aggregate a bucket a tile (rows of aggregates padded to 8
+    buckets): at most 17 % of the bytes its tiles' tasks move. N = 0
+    launches nothing. (The C launcher refuses
+    any other geometry:
+    ``test_cuda_kernels_refuse_a_plan_they_do_not_launch``.)"""
+    tile = troute.RANK_TILE
+    for n in RANK_PLAN_NS:
+        p = troute.bucket_rank_plan(s, n, nb)
+        tiles = p.tiles[2]
+        assert p.path == "lookback" and p.tiles[:2] == (tile, nb)
+        if n == 0:
+            assert tiles == p.grid[0] == 0
+        else:
+            assert (tiles - 1) * tile < n + 3 <= tiles * tile
+            assert all(tiles * tile - shift >= n for shift in range(4))
+        assert p.grid == (s * tiles, 1, 1) and p.grid[0] < 2 ** 31
+        assert (p.threads, p.stages) == (256, 1)
+        assert p.smem_bytes == troute.rank_smem(nb) <= SMEM_LIMIT
+        assert p.smem_bytes >= 4 * (tile + 8 * nb)
+        scratch = troute.rank_scratch_ints(p)
+        if nb == 1:
+            assert scratch == 2 + 2 * s * tiles
+        else:   # the uint16 aggregates from a 16-byte boundary, rows of 8
+            head = 2 + 2 * s * tiles + s * tiles * nb
+            row = -(-nb // 8) * 8
+            assert scratch == -(-head // 4) * 4 + s * tiles * row // 2
+        assert 4 * (scratch - 2) <= 0.17 * 9 * tile * s * tiles + 16
+
+
+def test_bucket_rank_plan_refuses():
+    for bad in [dict(n_buckets=0), dict(n_buckets=troute.MAX_BUCKETS + 1),
+                dict(n=-1), dict(s=-1), dict(n=troute.RANK_MAX_TASKS + 1)]:
+        args = dict(s=2, n=10, n_buckets=4)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            troute.bucket_rank_plan(**args)
+
+
 def test_bucket_scatter_plan_refuses():
     for bad in [dict(n_buckets=0), dict(n_buckets=troute.MAX_BUCKETS + 1),
                 dict(cap=0), dict(n=-1), dict(d=-1)]:
@@ -936,13 +1063,13 @@ def test_cuda_kernels_refuse_a_plan_they_do_not_launch(cuda_device):
     """The C launchers compute their own geometry and refuse a launch plan
     that differs from it in any field, so ``launch_plan`` (checked on the
     CPU) is what runs on the card: ``chip_smoke.plans_refused`` launches
-    every design of the bucket scatter (2), the reduce (2), gmm (4),
-    flash attention (4) and the BSR SpMV (2) with its own plan and with
-    each of the plan's 7 fields altered."""
+    every design of the bucket rank (1), the bucket scatter (2), the
+    reduce (2), gmm (4), flash attention (4) and the BSR SpMV (2) with its
+    own plan and with each of the plan's 7 fields altered."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     try:
         import chip_smoke
     finally:
         sys.path.pop(0)
-    assert chip_smoke.plans_refused(cuda_device) == 14 * 7
+    assert chip_smoke.plans_refused(cuda_device) == 15 * 7
 
