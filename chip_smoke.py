@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bfs-rounds [SRC]   # BFS flat 64's round only
     python3 chip_smoke.py --rank-grid [SRC]    # the rank kernel's grid only
+    python3 chip_smoke.py --dse                # phase 14 alone (after 2)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -107,9 +108,23 @@ script exits non-zero with no result line:
    standalone ``run_program`` runs; requests/s, p50/p99 latency and the
    busy share of a profiled pass. Then one ``MoEService`` dispatch of
    OLMoE-1B-7B (x [8, 2048, 2048], the config's factor) through a
-   server, against a direct ``moe_dcra`` call within 1e-5 of max|out|.
+   server, against a direct ``moe_dcra`` call within 1e-5 of max|out|;
+14. the analytic stack and ``config="auto"`` (``repro_torch.dse``):
+   (a) the quick DSE sweep (24 points, 5 apps, RMAT-8 and the wiki-like
+   graph) with its revalidation on 8 shards of the card, equal to the
+   committed ``BENCH_dse.json`` (point ids, frontier, per-app slices,
+   signatures, every metric within 1e-12 relative, the 14 revalidation
+   entries); (b) ``shardcheck`` of its highest-TEPS frontier point on
+   RMAT-18 (edge factor 8) over 64 shards, all seven apps, executable
+   messages, drops and rounds equal to the port's analytic twin, with
+   the card's and the twin's seconds; (c) ``dcra_bfs`` with
+   ``config="auto"`` on RMAT-22 flat 64 from phase 4's root and on pod
+   8 x 8 at the largest RMAT scale whose pod wire fits 16 GiB: the
+   resolved ``LaunchConfig`` (source, point, score, caps),
+   autoconfigure's host seconds, drops a round and TEPS, bit-identical
+   to the plain-torch path under the same ``LaunchConfig``.
 
-Each path of phases 4-7, 9-13 runs with every kernel's launch count set
+Each path of phases 4-7, 9-14 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -2775,6 +2790,278 @@ def run_moe_service(device, totals):
         f"{path.launches} [{SMI}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the analytic stack, config="auto" and the DSE revalidation
+# ---------------------------------------------------------------------------
+
+DSE_SCALE, DSE_SHARDS = 8, 8        # (a): the committed sweep's scale, shards
+TWIN_SCALE, TWIN_SHARDS = 18, 64    # (b): RMAT scale (edge factor 8), shards
+TWIN_APPS = ("spmv", "histogram", "bfs", "sssp", "wcc", "pagerank", "kcore")
+#: (c): the pod half runs at the largest RMAT scale whose reckoned wire,
+#: stage 2's S * n_pods * cap2 * 8 B plus stage 1's S * n_intra * cap1 *
+#: 12 B (value, slot, pod coordinate), fits this
+POD_WIRE_BYTES = 16 << 30
+POD_SHAPE = (8, 8)
+REL_METRIC = 1e-12                  # (a): metrics against the committed file
+STAGED_ONLY = {"bucket_scatter": "staged"}
+
+
+def same_bench(bench, committed):
+    """(a)'s check: the same 24 point ids, every metric and per-cell
+    number within ``REL_METRIC`` relative, the same configs, frontier
+    flags, ``pareto``, ``app_frontiers``, ``dataset_signatures``, and
+    the revalidation entries equal one by one."""
+    ids = [r["point_id"] for r in bench["points"]]
+    want = [r["point_id"] for r in committed["points"]]
+    if ids != want or len(ids) != 24:
+        raise AssertionError(f"DSE: point ids differ from the committed "
+                             f"file ({len(ids)} against {len(want)})")
+    worst = 0.0
+    for got, ref in zip(bench["points"], committed["points"]):
+        if got["config"] != ref["config"] or got["pareto"] != ref["pareto"]:
+            raise AssertionError(f"DSE {ref['point_id']}: config or "
+                                 f"frontier flag differs")
+        if (list(got["metrics"]) != list(ref["metrics"])
+                or list(got["per_cell"]) != list(ref["per_cell"])):
+            raise AssertionError(f"DSE {ref['point_id']}: metrics or cells "
+                                 f"differ")
+        pairs = [(got["metrics"][k], v) for k, v in ref["metrics"].items()]
+        for cell, vals in ref["per_cell"].items():
+            pairs += [(got["per_cell"][cell][k], v) for k, v in vals.items()]
+        for a, b in pairs:
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-300))
+    if worst > REL_METRIC:
+        raise AssertionError(f"DSE: a metric differs from the committed "
+                             f"file by {worst:.3e} relative")
+    for key in ("pareto", "app_frontiers", "dataset_signatures"):
+        if bench[key] != committed[key]:
+            raise AssertionError(f"DSE: {key} differs from the committed "
+                                 f"file")
+    reval, want_reval = bench["revalidation"], committed["revalidation"]
+    if len(reval) != 14 or reval != want_reval:
+        bad = [(a, b) for a, b in zip(reval, want_reval) if a != b]
+        raise AssertionError(f"DSE: revalidation differs from the committed "
+                             f"file ({len(reval)} entries; first differing "
+                             f"{bad[:1]})")
+    return worst
+
+
+def dse_sweep(device, totals):
+    """(a) the quick sweep with its revalidation on the card."""
+    from repro_torch.dse.space import ConfigSpace
+    from repro_torch.dse.sweep import QUICK_APPS, run
+    committed = json.loads((ROOT / "BENCH_dse.json").read_text())
+    timings = {}
+    with MainPath("DSE quick sweep", ROUTE_KERNELS, totals,
+                  STAGED_ONLY) as path:
+        t0 = time.perf_counter()
+        bench = run(ConfigSpace.quick(), QUICK_APPS, DSE_SCALE, top_k=2,
+                    n_dev=DSE_SHARDS, out=None, quick=True, device=device,
+                    timings=timings)
+        sweep_s = time.perf_counter() - t0
+    worst = same_bench(bench, committed)
+    exe_s = sum(v for k, v in timings.items() if k.endswith("executable"))
+    ana_s = sum(v for k, v in timings.items() if k.endswith("analytic"))
+    log(f"dse quick sweep: 24 points x {len(QUICK_APPS)} apps x 2 datasets "
+        f"(scale {DSE_SCALE}) in {sweep_s:.2f} s, of which the "
+        f"revalidation's executables {exe_s:.2f} s on the card and its "
+        f"twin {ana_s:.2f} s on the host; equal to the committed "
+        f"BENCH_dse.json (ids, pareto, app_frontiers, dataset_signatures; "
+        f"metrics within {worst:.3e} relative, bound {REL_METRIC:g}; the 14 "
+        f"revalidation entries entry by entry, {DSE_SHARDS} shards at "
+        f"scale {DSE_SCALE}); launches {path.launches}, route designs "
+        f"{path.paths} [{SMI}]")
+    ranked = sorted((r for r in bench["points"] if r.get("pareto")),
+                    key=lambda r: -r["metrics"]["teps_geomean"])
+    return ranked[0]
+
+
+def twin_at_scale(best, device, totals):
+    """(b) ``shardcheck`` of the frontier's highest-TEPS point on
+    RMAT-``TWIN_SCALE`` over ``TWIN_SHARDS`` virtual shards of the card,
+    every app: the executables' messages, drops and rounds against the
+    port's analytic twin."""
+    from repro_torch.dse.shardcheck import check_point
+    check = {"point_id": best["point_id"],
+             "iq_capacity": best["config"]["iq_capacity"],
+             "apps": list(TWIN_APPS)}
+    timings = {}
+    with MainPath(f"shardcheck rmat-{TWIN_SCALE}", ROUTE_KERNELS, totals,
+                  STAGED_ONLY) as path:
+        t0 = time.perf_counter()
+        res = check_point(check, TWIN_SHARDS, TWIN_SCALE, 0, device=device,
+                          timings=timings)
+        wall = time.perf_counter() - t0
+    for r in res:
+        e, a = r["executable"], r["analytic"]
+        log(f"shardcheck rmat-{TWIN_SCALE} x {TWIN_SHARDS} {r['app']} "
+            f"(cap {r['cap']}): executable messages {e['messages']} drops "
+            f"{e['drops']} rounds {e.get('rounds', 1)} in "
+            f"{timings[r['app'] + ' executable']:.2f} s on the card; twin "
+            f"{a['messages']} / {a['drops']} / {a.get('rounds', 1)} in "
+            f"{timings[r['app'] + ' analytic']:.2f} s on the host; "
+            f"{'equal' if r['ok'] else 'DIFFERENT'}")
+    bad = [r["app"] for r in res if not r["ok"]]
+    if bad or len(res) != len(TWIN_APPS):
+        raise AssertionError(f"shardcheck rmat-{TWIN_SCALE}: executable and "
+                             f"twin differ for {bad}")
+    exe_s = sum(v for k, v in timings.items() if k.endswith("executable"))
+    ana_s = sum(v for k, v in timings.items() if k.endswith("analytic"))
+    log(f"shardcheck rmat-{TWIN_SCALE} x {TWIN_SHARDS} ({best['point_id']}): "
+        f"all {len(res)} apps equal to the twin; {wall:.2f} s in all, "
+        f"executables {exe_s:.2f} s (card, synchronised), twin {ana_s:.2f} s "
+        f"(host), the graph programs' packing {timings['packing']:.2f} s "
+        f"(host, shared); launches {path.launches}, route designs "
+        f"{path.paths} [{SMI}]")
+
+
+class Recorded:
+    """Wraps ``repro_torch.dse.autoconfig.autoconfigure`` while in use:
+    every ``LaunchConfig`` an ``config="auto"`` launch resolves, with its
+    host seconds, lands in ``self.calls``."""
+
+    def __enter__(self):
+        from repro_torch.dse import autoconfig
+        self.module, self.real, self.calls = autoconfig, \
+            autoconfig.autoconfigure, []
+
+        def recording(*args, **kwargs):
+            t0 = time.perf_counter()
+            lc = self.real(*args, **kwargs)
+            self.calls.append((lc, time.perf_counter() - t0))
+            return lc
+        autoconfig.autoconfigure = recording
+        return self
+
+    def __exit__(self, *_):
+        self.module.autoconfigure = self.real
+        return False
+
+
+def hier_wire_bytes(e_max, n_intra, n_pods, n_dev):
+    """The pod path's wire at ``device_queues(pod=True)`` (factor n_dev):
+    stage 1 (3 columns) plus stage 2 (2 columns), 4 B a column."""
+    from repro_torch.core.queues import QueueConfig
+    from repro_torch.core.routing import resolve_hier_caps
+    cap1, cap2 = resolve_hier_caps(QueueConfig.from_factor(float(n_dev)),
+                                   "T3", e_max, n_intra, n_pods)
+    return (n_dev * n_intra * cap1 * 12 + n_dev * n_pods * cap2 * 8,
+            (cap1, cap2))
+
+
+def e_max_of(g, n_dev):
+    """``_pack_edges``' E_max without packing: the largest per-shard
+    count of edges by source owner."""
+    import numpy as np
+    own = np.bincount(np.arange(g.n) % n_dev, weights=g.degrees(),
+                      minlength=n_dev)
+    return max(8, int(own.max()))
+
+
+def pod_graph(g, e_max22):
+    """The largest RMAT scale whose pod wire (:func:`hier_wire_bytes`)
+    fits ``POD_WIRE_BYTES``: scales whose wire, scaled down from RMAT-22's
+    E_max, is above 4x the budget are skipped unbuilt; the rest are built
+    and reckoned from their own E_max. Returns ``(scale, graph, E_max,
+    wire bytes, caps, reckonings)``."""
+    from repro_torch.sparse import datasets
+    n_intra, n_pods = POD_SHAPE[1], POD_SHAPE[0]
+    n_dev = n_intra * n_pods
+    seen = []
+    for s in range(SCALE, 7, -1):
+        guess, _ = hier_wire_bytes(e_max22 >> (SCALE - s), n_intra, n_pods,
+                                   n_dev)
+        if guess > 4 * POD_WIRE_BYTES:
+            seen.append((s, "scaled", guess))
+            continue
+        gs = g if s == SCALE else datasets.rmat(s, seed=SEED)
+        e_max = e_max_of(gs, n_dev)
+        wire, caps = hier_wire_bytes(e_max, n_intra, n_pods, n_dev)
+        seen.append((s, "built", wire))
+        if wire <= POD_WIRE_BYTES:
+            return s, gs, e_max, wire, caps, seen
+    raise AssertionError(f"no RMAT scale's pod wire fits: {seen}")
+
+
+def auto_bfs(tag, g, root, fabric, setup, totals):
+    """One ``dcra_bfs(..., options=LaunchOptions(config="auto"))`` on
+    ``fabric`` and the same launch with ``route_impl="sort"`` under the
+    ``LaunchConfig`` it resolved: bit-identical states and ``AppStats``.
+    Drops are the resolved point's capacity semantics, so no oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.core.routing import resolve_caps
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import dcra_bfs
+    with Recorded() as rec:
+        with MainPath(f"BFS auto {tag}", ROUTE_KERNELS, totals,
+                      STAGED_ONLY) as path:
+            t0 = time.perf_counter()
+            dist, stats = dcra_bfs(g, root, fabric, setup=setup,
+                                   options=LaunchOptions(config="auto"))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    if len(rec.calls) != 1:
+        raise AssertionError(f"BFS auto {tag}: {len(rec.calls)} "
+                             f"auto-configurations, expected 1")
+    lc, auto_s = rec.calls[0]
+    plain, pstats = dcra_bfs(g, root, fabric, setup=setup,
+                             options=LaunchOptions(config=lc,
+                                                   route_impl="sort"))
+    if not (np.array_equal(plain, dist) and pstats.rounds == stats.rounds
+            and np.array_equal(pstats.messages, stats.messages)
+            and np.array_equal(pstats.drops, stats.drops)):
+        raise AssertionError(f"BFS auto {tag}: kernel path differs from the "
+                             f"plain-torch path under the same LaunchConfig")
+    e_max = setup[-1] if setup is not None else e_max_of(g,
+                                                         fabric.n_devices)
+    pod_axis = lc.pod_axis_for(fabric)
+    queues = lc.device_queues(fabric.n_devices, e_max,
+                              pod=pod_axis is not None)
+    caps, pods = resolve_caps(fabric, queues, "T3", e_max, "data", pod_axis,
+                              clamp=True)
+    reached = int(g.degrees()[dist >= 0].sum())
+    launch_s = run_s - auto_s
+    log(f"bfs auto {tag} (rmat n={g.n} nnz={g.nnz}, root {root}): "
+        f"autoconfigure {auto_s:.2f} s on the host (its evaluator's BFS "
+        f"root, vertex 0, has out-degree {int(g.degrees()[0])}) -> "
+        f"{lc.source} "
+        f"{lc.point.point_id} score {lc.score:.6f} (signature "
+        f"{lc.signature}); pod axis {pod_axis}, pods {pods}, caps {caps} "
+        f"(E_max {e_max}); rounds {stats.rounds}, messages "
+        f"{stats.messages.tolist()}, drops {stats.drops.tolist()} (total "
+        f"{stats.total_drops}); reached {int((dist >= 0).sum())} vertices, "
+        f"{reached} edges; launch {launch_s:.4f} s past the "
+        f"autoconfiguration, TEPS {reached / launch_s:.4e}; launches "
+        f"{path.launches}, route designs {path.paths}; plain-torch path "
+        f"under the same LaunchConfig bit-identical [{SMI}]")
+    return lc, auto_s
+
+
+def run_dse(g, setup, root, device, totals):
+    """Phase 14: (a) the quick DSE sweep with its revalidation on the
+    card, held to the committed ``BENCH_dse.json``; (b) ``shardcheck`` of
+    its highest-TEPS frontier point on RMAT-``TWIN_SCALE`` over
+    ``TWIN_SHARDS`` shards, every app against the twin; (c) the
+    auto-configured BFS on RMAT-22, flat 64, from phase 4's root, and on
+    pod 8 x 8 at the largest scale whose wire fits ``POD_WIRE_BYTES``."""
+    import numpy as np
+    from repro_torch.core.fabric import Fabric
+    best = dse_sweep(device, totals)
+    twin_at_scale(best, device, totals)
+    auto_bfs("flat 64", g, root, Fabric.fake(64, device=device), setup,
+             totals)
+    s, gs, e_max, wire, caps, seen = pod_graph(g, setup[-1])
+    log(f"pod half: RMAT-{s} (n={gs.n} nnz={gs.nnz} E_max {e_max}) is the "
+        f"largest scale whose wire at factor 64 fits {POD_WIRE_BYTES} B: "
+        f"{wire} B, caps {caps}; reckoned: "
+        + ", ".join(f"RMAT-{sc} {how} {b} B" for sc, how, b in seen))
+    auto_bfs(f"pod {POD_SHAPE[0]}x{POD_SHAPE[1]} rmat-{s}", gs,
+             int(np.argmax(gs.degrees())),
+             Fabric.virtual(POD_SHAPE, ("pod", "data"), device=device),
+             None, totals)
+
+
 def bfs_rounds(src):
     """``--bfs-rounds [SRC]``: BFS on RMAT-22, flat 64 shards at factor 4,
     with the ``repro_torch`` package found under ``SRC`` (default: this
@@ -2825,6 +3112,32 @@ def bfs_rounds(src):
     return 0
 
 
+def dse_only():
+    """``--dse``: the build, RMAT-22 and its packing (phase 2) and phase 14
+    alone; its launch counts are printed, no kernel table."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.sparse import datasets
+    from repro_torch.sparse.program import _graph_setup
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    g = datasets.rmat(SCALE, seed=SEED)
+    setup = _graph_setup(g, 64)
+    root = int(np.argmax(g.degrees()))
+    t0 = phase(f"rmat-{SCALE} and its packing", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_dse(g, setup, root, torch.device(*CARD), totals)
+    phase("14 (DSE, twin, config=auto)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
     return time.perf_counter()
@@ -2848,6 +3161,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-grid"]:
         return rank_grid_only(sys.argv[2] if len(sys.argv) > 2
                               else ROOT / "src")
+    if sys.argv[1:2] == ["--dse"]:
+        return dse_only()
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import routing
@@ -2953,11 +3268,17 @@ def main() -> int:
                                                    "bound_ms")})
     rank.update(run_pipelined(g, root, want, setup, device, totals,
                               pagerank))
-    del g, setup, want, pagerank
+    del want, pagerank
     torch.cuda.empty_cache()
     t0 = phase("12 (pipelined rounds rmat-22)", t0)
     run_server(device, totals)
     t0 = phase("13 (server rmat-20, MoE service)", t0)
+
+    # ---- 14: the DSE sweep, the twin at scale, config="auto" ---------------
+    torch.cuda.empty_cache()
+    run_dse(g, setup, root, device, totals)
+    del g, setup
+    t0 = phase("14 (DSE, twin rmat-18, config=auto rmat-22)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

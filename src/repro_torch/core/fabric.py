@@ -29,6 +29,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .topology import TileGrid
+
 #: one axis name, a tuple of names, or None (no axis)
 Axes = Union[None, str, Sequence[str]]
 
@@ -104,6 +106,21 @@ class Fabric:
     def fabric_key(self) -> tuple:
         """Stable identity for the round-function cache."""
         return (self.axis_names, self.shape, str(self.device))
+
+    # ---- analytic-model hooks ------------------------------------------
+
+    def tile_grid(self) -> TileGrid:
+        """The analytic twin's grid at this fabric's parallelism: one tile
+        per shard (``TileGrid(1, n_devices)``), the channel structure the
+        shardcheck revalidation relies on."""
+        return TileGrid(1, self.n_devices)
+
+    def device_coords(self) -> Tuple[Tuple[int, Tuple[int, ...]], ...]:
+        """``((shard index, coordinates), ...)`` in row-major shard order.
+        The shards are virtual, so a shard's index stands where the
+        reference gives a device id."""
+        return tuple((g, tuple(int(c) for c in row))
+                     for g, row in enumerate(self.coords))
 
     # ---- elasticity ----------------------------------------------------
 

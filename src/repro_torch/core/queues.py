@@ -1,15 +1,19 @@
-"""Task-queue sizing: the single source of IQ capacities.
+"""Task-queue sizing: the single source of IQ capacities, and the
+per-round queue pressure the analytic engine records.
 
-Counterpart of ``repro/core/queues.py`` (the part the routing layer
-reads). A capacity is either an explicit entry count (``iq_sizes`` /
-``default_iq``, honoured exactly) or a relative capacity factor
-(``iq_factors``: ``tasks_per_round * factor / n_channels``, lane-aligned
-with :func:`round8`).
+Counterpart of ``repro/core/queues.py``. A capacity is either an explicit
+entry count (``iq_sizes`` / ``default_iq``, honoured exactly) or a
+relative capacity factor (``iq_factors``: ``tasks_per_round * factor /
+n_channels``, lane-aligned with :func:`round8`). Output queues
+(``oq_sizes`` / ``default_oq``) only price producer stalls in the
+analytic performance model.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+import numpy as np
 
 
 def round8(x: int) -> int:
@@ -28,6 +32,11 @@ class QueueConfig:
     iq_factors: Dict[str, float] = field(default_factory=dict)
     # routing engine: "pallas" | "sort" | "onehot" (None = "pallas")
     route_impl: Optional[str] = None
+    oq_sizes: Dict[str, int] = field(default_factory=dict)
+    default_oq: int = 12
+
+    def oq(self, task: str) -> int:
+        return self.oq_sizes.get(task, self.default_oq)
 
     def channel_cap(self, task: str, tasks_per_round: int,
                     n_channels: int, lane_align: bool = True
@@ -72,3 +81,21 @@ class QueueConfig:
         "expert") at one capacity factor."""
         return cls(default_iq=None,
                    iq_factors={t: factor for t in MOE_DISPATCH_TASKS})
+
+
+@dataclass
+class QueueStats:
+    """Per-round aggregate queue pressure (peak IQ / OQ occupancy and
+    tasks routed, per task class)."""
+    peak_iq: Dict[str, int] = field(default_factory=dict)
+    peak_oq: Dict[str, int] = field(default_factory=dict)
+    total_tasks: Dict[str, int] = field(default_factory=dict)
+
+    def record(self, task: str, per_tile_in: np.ndarray,
+               per_tile_out: np.ndarray):
+        self.peak_iq[task] = max(self.peak_iq.get(task, 0),
+                                 int(per_tile_in.max(initial=0)))
+        self.peak_oq[task] = max(self.peak_oq.get(task, 0),
+                                 int(per_tile_out.max(initial=0)))
+        self.total_tasks[task] = self.total_tasks.get(task, 0) + \
+            int(per_tile_in.sum())

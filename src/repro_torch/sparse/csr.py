@@ -47,6 +47,11 @@ class CSR:
         cols_t = self.row_of()[order].astype(np.int32)
         return CSR(_row_ptr(rows_t, self.n), cols_t, self.values[order])
 
+    def memory_bytes(self) -> int:
+        """Bytes of the three arrays (the analytic models' footprint)."""
+        return (self.row_ptr.nbytes + self.col_idx.nbytes
+                + self.values.nbytes)
+
 
 def _row_ptr(rows: np.ndarray, n: int) -> np.ndarray:
     rp = np.zeros(n + 1, np.int64)

@@ -1,5 +1,5 @@
 """The TaskProgram runtime on virtual shards (counterpart of
-``repro/sparse/program.py:64-964``).
+``repro/sparse/program.py``).
 
 A :class:`TaskProgram` is an app's spec (payload rule, reduce op, update
 rule, task class, or a one-round task stream); :func:`run_program` owns
@@ -15,8 +15,17 @@ Layout: vertex ``v`` lives on shard ``v % S`` at local slot ``v // S``;
 edges are partitioned by the owner of their source vertex. Shard state
 is ``[S, n_local]`` float32, edges ``[S, E_max]``.
 
-Not in this slice: ``config="auto"`` and the analytic twin; the first
-raises, the second is absent, and ``ROADMAP.md`` queues both.
+``options.config`` resolves the launch's deployment through
+:func:`resolve_launch` (``"auto"``: the Pareto-guided selection of
+:mod:`repro_torch.dse.autoconfig`): its pod/portal routing and its IQ
+sizing folded onto the fabric's shards.
+
+The analytic twin (:func:`program_rounds`, :func:`program_app_stats`)
+runs a graph program's own rules on CPU tensors ``[S, n_local]`` with the
+executable's packed-edge admission order and first-``cap``-per-channel
+keep rule, kept-only updates, and replays each round's task stream
+through :meth:`repro_torch.core.task_engine.TaskEngine.route`: its
+per-round message and drop counts equal the executable's exactly.
 """
 from __future__ import annotations
 
@@ -32,7 +41,9 @@ from ..core.routing import (local_route_reduce, owner_route,
                             owner_route_finish, owner_route_hier,
                             owner_route_hier_start, owner_route_start,
                             reduce_received, resolve_caps, resolve_flat_cap,
-                            resolve_route_impl)
+                            resolve_hier_caps, resolve_route_impl)
+from ..core.task_engine import EngineConfig, TaskEngine
+from ..core.topology import TileGrid
 from .options import LaunchOptions, resolve_options
 
 
@@ -185,6 +196,40 @@ def _graph_setup(g, n_dev, undirected=False, seed=0):
     return n_local, src_slot, dst, w, E_max
 
 
+def resolve_launch(config, g, app, objective="teps"):
+    """An app's ``config`` as a ``LaunchConfig`` (or ``None``): ``"auto"``
+    runs :func:`repro_torch.dse.autoconfig.autoconfigure` on ``g``, a
+    ``LaunchConfig`` passes through, a ``DesignPoint`` is wrapped as an
+    explicit choice. (Its conflicts with explicit IQ sizing are
+    :meth:`LaunchOptions.resolve`'s.)"""
+    if config is None:
+        return None
+    from ..dse.autoconfig import LaunchConfig, autoconfigure, launch_for
+    if isinstance(config, str):
+        if config != "auto":
+            raise ValueError(f"unknown config {config!r} (expected 'auto', "
+                             f"a LaunchConfig or a DesignPoint)")
+        return autoconfigure(g, app, objective=objective)
+    if isinstance(config, LaunchConfig):
+        return config
+    return launch_for(config, g, objective=objective)
+
+
+def _launch_sizing(opts: LaunchOptions, lc, fab: Fabric, task: str,
+                   default_factor: float, e_local: int
+                   ) -> Tuple[Optional[str], QueueConfig]:
+    """A launch's pod axis and IQ sizing: with a resolved ``LaunchConfig``
+    the explicit pod axis, else the config's (:meth:`pod_axis_for`), and
+    the config's queues folded onto the fabric's shards
+    (:meth:`device_queues`); without one, ``opts``' own."""
+    if lc is None:
+        return opts.pod_axis, _resolve_queues(opts, task, default_factor)
+    pod_axis = (opts.pod_axis if opts.pod_axis is not None
+                else lc.pod_axis_for(fab))
+    return pod_axis, lc.device_queues(fab.n_devices, e_local, task,
+                                      pod=pod_axis is not None)
+
+
 def _resolve_queues(opts: LaunchOptions, task: str, default_factor: float
                     ) -> QueueConfig:
     """The IQ sizing of a launch: ``opts.queues``, else ``opts.cap``
@@ -326,32 +371,32 @@ def _build_scatter_fn(pods, n_dev, n_local, caps, op, impl):
 # the runtime
 # ---------------------------------------------------------------------------
 
-def _check_launch(opts: LaunchOptions, fabric) -> None:
+def _check_launch(fabric) -> None:
     if not isinstance(fabric, Fabric):
         raise TypeError(f"fabric must be a repro_torch Fabric, got "
                         f"{type(fabric).__name__}")
-    if opts.config is not None:
-        raise NotImplementedError(
-            "config= needs the DSE/auto-configuration stack, not ported yet "
-            "(ROADMAP queue 1, item 2)")
 
 
 def run_program(prog: TaskProgram, data, fabric: Fabric, *,
                 options: Optional[LaunchOptions] = None,
                 params: Optional[Mapping] = None,
                 max_rounds: Optional[int] = None, setup=None,
-                donate_states: bool = False):
+                donate_states: bool = False, dataset=None):
     """Execute a :class:`TaskProgram` on ``fabric``. Graph programs return
     ``(state_arrays, AppStats)``, each state unpacked to global order as
     float64: the :meth:`ProgramLaunch.result` of :func:`launch_program`
     (``setup`` and ``donate_states`` as there). Stream programs return
     ``(y [n_items] numpy float32, AppStats)`` of one round.
     ``options.round_mode="pipelined"`` selects the pipelined round loop:
-    the same states, rounds and per-round stats as lockstep."""
+    the same states, rounds and per-round stats as lockstep.
+    ``options.config`` is resolved against a graph program's graph, and
+    against a stream program's ``dataset`` (its graph or element stream;
+    ``data`` when not given)."""
     opts = resolve_options(options)
-    _check_launch(opts, fabric)
+    _check_launch(fabric)
     if prog.mode == "single":
-        return _launch_stream(prog, data, fabric, opts, dict(params or {}))
+        return _launch_stream(prog, data, fabric, opts, dict(params or {}),
+                              dataset)
     if prog.mode not in ("while", "fixed"):
         raise ValueError(f"unknown program mode {prog.mode!r}")
     return _launch_graph(prog, data, fabric, opts, dict(params or {}),
@@ -383,23 +428,27 @@ def launch_program(prog: TaskProgram, data, fabric: Fabric, *,
         raise ValueError("launch_program handles graph programs only; "
                          "stream programs run through run_program")
     opts = resolve_options(options)
-    _check_launch(opts, fabric)
+    _check_launch(fabric)
     return _launch_graph(prog, data, fabric, opts, dict(params or {}),
                          max_rounds, setup, donate_states)
 
 
 def _launch_stream(prog: TaskProgram, data, fab: Fabric,
-                   opts: LaunchOptions, params):
+                   opts: LaunchOptions, params, dataset=None):
     """One round of a stream program: the single-shard local reduce when
     it cannot change the result, else :func:`dcra_scatter`."""
     n_dev = fab.n_devices
+    lc = resolve_launch(opts.config, data if dataset is None else dataset,
+                        prog.name, opts.objective)
     dest, vals, n_items = prog.stream(data, params, n_dev, opts.seed)
-    queues = _resolve_queues(opts, prog.task, prog.default_capacity_factor)
+    pod_axis, queues = _launch_sizing(opts, lc, fab, prog.task,
+                                      prog.default_capacity_factor,
+                                      len(dest) // n_dev)
     messages = np.array([int((dest >= 0).sum())], np.int64)
     # an explicit route_impl always runs the routed path: the local
     # reduce only replaces the default engine
     if (prog.local_reduce is not None and n_dev == 1
-            and opts.pod_axis is None and opts.route_impl is None
+            and pod_axis is None and opts.route_impl is None
             and queues.route_impl is None):
         e_local = len(dest)
         if resolve_flat_cap(queues, prog.task, e_local, n_dev) >= e_local:
@@ -408,7 +457,7 @@ def _launch_stream(prog: TaskProgram, data, fab: Fabric,
                                drops=np.zeros(1, np.int64))
     y_sh, dropped = dcra_scatter(
         dest, vals, n_items, fab,
-        options=LaunchOptions(axis=opts.axis, pod_axis=opts.pod_axis,
+        options=LaunchOptions(axis=opts.axis, pod_axis=pod_axis,
                               queues=queues, route_impl=opts.route_impl),
         op=prog.reduce_op, task=prog.task)
     y = from_owner_layout(y_sh.cpu().numpy(), n_items, n_dev)
@@ -502,6 +551,7 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
     """Resolve, hit the round-function cache and enqueue the launch; the
     :class:`ProgramLaunch` it returns has not waited for the device."""
     n_dev, n = fab.n_devices, g.n
+    lc = resolve_launch(opts.config, g, prog.name, opts.objective)
     if setup is None:
         setup = _graph_setup(g, n_dev, undirected=prog.undirected,
                              seed=opts.seed)
@@ -509,9 +559,10 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
     if (int(np.prod(dst.shape)) != n_dev * E_max
             or n_local != -(-n // n_dev)):
         raise ValueError("setup= was packed for another graph or fabric")
-    queues = _resolve_queues(opts, prog.task, prog.default_capacity_factor)
+    pod_axis, queues = _launch_sizing(opts, lc, fab, prog.task,
+                                      prog.default_capacity_factor, E_max)
     caps, pods = resolve_caps(fab, queues, prog.task, E_max, opts.axis,
-                              opts.pod_axis, clamp=True)
+                              pod_axis, clamp=True)
     impl = resolve_route_impl(opts.route_impl if opts.route_impl is not None
                               else queues.route_impl)
     states0, fills = prog.init(g, params)
@@ -525,7 +576,7 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
     # no rounds, nothing to overlap (repro/sparse/program.py:743)
     round_mode = opts.round_mode if rounds > 0 else "lockstep"
     kparams = {k: v for k, v in params.items() if k not in prog.init_only}
-    key = (prog, n, n_dev, n_local, E_max, opts.axis, opts.pod_axis, pods,
+    key = (prog, n, n_dev, n_local, E_max, opts.axis, pod_axis, pods,
            caps, impl, rounds, round_mode, len(packed),
            tuple(sorted(kparams.items())), fab.fabric_key())
     if donate_states:
@@ -729,3 +780,216 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
                 drops.sum(1, dtype=torch.int32))
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# the analytic twin: the rules on CPU tensors, replayed through TaskEngine
+# ---------------------------------------------------------------------------
+
+def _channel_ranks(keys):
+    """Stable rank of each key among the equal keys before it, in array
+    order: the admission order of ``bucket``."""
+    if not len(keys):
+        return np.zeros(0, np.int64)
+    # a stable sort's permutation is unique, so a 16-bit copy of the
+    # (non-negative) keys gives the same order, radix-sorted
+    order = np.argsort(keys.astype(np.uint16) if keys.max() < 1 << 16
+                       else keys, kind="stable")
+    ks = keys[order]
+    starts = np.r_[0, np.flatnonzero(ks[1:] != ks[:-1]) + 1]
+    sizes = np.diff(np.r_[starts, len(ks)])
+    out = np.empty(len(ks), np.int64)
+    out[order] = np.arange(len(ks)) - np.repeat(starts, sizes)
+    return out
+
+
+def _bucket_positions(chan, active):
+    """Stable per-channel cumcount of the active tasks, in array order.
+    -1 where inactive."""
+    pos = np.full(len(chan), -1, np.int64)
+    idx = np.flatnonzero(active)
+    pos[idx] = _channel_ranks(chan[idx])
+    return pos
+
+
+def _flat_keep(chan, active, cap):
+    """The flat keep rule: the first ``cap`` active tasks of each (sender
+    shard, owner) channel ``chan = sender * S + owner``. ``(keep,
+    n_drop)``."""
+    idx = np.flatnonzero(active)
+    keep = np.zeros(len(active), bool)
+    keep[idx[_channel_ranks(chan[idx]) < cap]] = True
+    return keep, int(len(idx) - keep.sum())
+
+
+def _hier_keep(dev_of, owner, active, caps, pods):  # noqa: PLR0917
+    """The two-stage pod/portal keep rule (as :func:`owner_route_hier`):
+    stage 1 admits per (sender, dest intra coordinate) channel at cap1;
+    stage 2 admits at the portal per dest pod at cap2, in the order the
+    exchange delivers (sender intra rank, then stage-1 slot)."""
+    n_intra, n_pods = pods
+    cap1, cap2 = caps
+    e_coord = owner % n_intra
+    p_coord = owner // n_intra
+    pos1 = _bucket_positions(dev_of * n_intra + e_coord, active)
+    keep1 = active & (pos1 < cap1)
+    drop1 = int(active.sum() - keep1.sum())
+    portal = (dev_of // n_intra) * n_intra + e_coord
+    idx = np.flatnonzero(keep1)
+    arr = idx[np.lexsort((pos1[idx], dev_of[idx] % n_intra, portal[idx]))]
+    chan2 = (portal * n_pods + p_coord)[arr]
+    pos2 = _bucket_positions(chan2, np.ones(len(arr), bool))
+    keep = np.zeros(len(active), bool)
+    keep[arr[pos2 < cap2]] = True
+    drop2 = int(len(arr) - keep.sum())
+    return keep, drop1 + drop2
+
+
+def _graph_caps(queues: QueueConfig, task: str,  # noqa: PLR0917
+                e_local: int, n_dev: int,
+                pods: Optional[Tuple[int, int]]) -> Tuple[int, ...]:
+    """A graph program's per-round capacities, flat (allocation-clamped
+    at ``e_local``, as :func:`_launch_graph`) or pod/portal."""
+    if queues.iq_sizes.get(task) is not None and pods is not None:
+        raise ValueError("explicit cap is only defined for the flat path")
+    if pods is None:
+        return (resolve_flat_cap(queues, task, e_local, n_dev, clamp=True),)
+    return resolve_hier_caps(queues, task, e_local, *pods)
+
+
+def program_rounds(prog: TaskProgram, g, n_dev, caps,  # noqa: PLR0917
+                   params=None, seed=0,
+                   pods=None, max_rounds=None, setup=None):
+    """Host mirror of a graph program's round loop: yields, a round, the
+    routed task stream ``(src_global, dst_global, n_drop)`` (every active
+    task, and the drop count of the keep rule) while evolving the state
+    with the kept tasks only, as the executable does. The state is the
+    executable's: CPU tensors ``[S, n_local]`` that the program's own
+    rules update, with the packed edges of :func:`_graph_setup` (``setup``
+    if given, as numpy), so the admission order is the executable's.
+    Received tasks fold through the plain receive-reduce."""
+    params = dict(params or {})
+    kparams = {k: v for k, v in params.items() if k not in prog.init_only}
+    n = g.n
+    n_local, src_slot, dst, w, E_max = (
+        setup if setup is not None
+        else _graph_setup(g, n_dev, undirected=prog.undirected, seed=seed))
+    src_slot = np.asarray(src_slot).reshape(-1).astype(np.int64)
+    dst = np.asarray(dst).reshape(-1)
+    dev_of = np.repeat(np.arange(n_dev), E_max)
+    evalid = dst >= 0
+    dstl = dst.astype(np.int64)
+    owner = np.where(evalid, dstl % n_dev, 0)
+    src_global = src_slot * n_dev + dev_of
+    chan = dev_of * n_dev + owner            # the flat (sender, owner) channel
+    src_t = torch.from_numpy(src_slot).view(n_dev, E_max)
+    w_t = torch.from_numpy(np.asarray(w, np.float32).reshape(n_dev, E_max))
+    evalid_t = torch.from_numpy(evalid).view(n_dev, E_max)
+
+    ctx = Ctx(n=n, n_dev=n_dev, params=kparams, gsum=gsum)
+    states0, fills = prog.init(g, params)
+    state = tuple(torch.from_numpy(np.asarray(
+        owner_layout(s, n_dev, f)[0], np.float32)).view(n_dev, n_local)
+        for s, f in zip(states0, fills))
+    frontier = prog.frontier0(ctx, state)
+    if prog.mode == "fixed":
+        rounds = int(params["iters"])
+    else:
+        rounds = int(max_rounds if max_rounds is not None
+                     else prog.max_rounds)
+
+    changed, r = True, 0
+    while r < rounds and (prog.mode == "fixed" or changed):
+        active_t = (torch.gather(frontier, 1, src_t) & evalid_t
+                    if prog.active == "frontier" else evalid_t)
+        active = active_t.reshape(-1).numpy().copy()
+        vals = prog.payload(ctx, state, src_t, w_t).to(torch.float32)
+        if pods is None:
+            keep, n_drop = _flat_keep(chan, active, caps[0])
+        else:
+            keep, n_drop = _hier_keep(dev_of, owner, active, caps, pods)
+        kd = dstl[keep]
+        kidx = (kd % n_dev) * n_local + kd // n_dev
+        upd = reduce_received(
+            torch.from_numpy(kidx.astype(np.int32))[None],
+            vals.reshape(-1)[torch.from_numpy(keep)][None],
+            n_dev * n_local, prog.reduce_op, impl="sort")
+        yield src_global[active], dstl[active], n_drop
+        state, frontier = prog.update(ctx, state, frontier,
+                                      upd.view(n_dev, n_local))
+        changed = bool(frontier.any())
+        r += 1
+
+
+def program_app_stats(prog: TaskProgram, data, n_dev, *,
+                      queues: Optional[QueueConfig] = None,
+                      cap: Optional[int] = None,
+                      capacity_factor: Optional[float] = None,
+                      params=None, seed=0,
+                      pods: Optional[Tuple[int, int]] = None,
+                      max_rounds=None, setup=None) -> AppStats:
+    """The analytic twin of one launch on ``n_dev`` shards: the program's
+    task stream (:func:`program_rounds`, or ``prog.stream``) replayed a
+    round at a time through ``TaskEngine.route`` on a ``TileGrid(1,
+    n_dev)`` at the capacity the executable resolves from the same
+    :class:`QueueConfig`; one tile a shard gives the same (source shard,
+    owner) channels, so the per-round message and drop counts equal the
+    executable's :class:`AppStats`. The pod/portal path (``pods =
+    (n_intra, n_pods)``) is counted by the two-stage keep rule. A graph
+    program's ``setup`` is its :func:`_graph_setup` on ``n_dev`` shards
+    (numpy), packed here when not given."""
+    params = dict(params or {})
+    queues = _resolve_queues(
+        LaunchOptions(queues=queues, cap=cap,
+                      capacity_factor=capacity_factor),
+        prog.task, prog.default_capacity_factor)
+
+    if prog.mode == "single":
+        dest, _, n_items = prog.stream(data, params, n_dev, seed)
+        e_local = len(dest) // n_dev
+        dev_of = np.repeat(np.arange(n_dev), e_local)
+        active = dest >= 0
+        if pods is None:
+            rcap = resolve_flat_cap(queues, prog.task, e_local, n_dev)
+            engine = TaskEngine(EngineConfig(
+                grid=TileGrid(1, n_dev),
+                queues=QueueConfig(default_iq=rcap)), n_items)
+            rs = engine.route(prog.task, src_idx=dev_of[active],
+                              dst_idx=dest[active].astype(np.int64))
+            return AppStats(rounds=1,
+                            messages=np.array([rs.tasks_total], np.int64),
+                            drops=np.array([rs.drops], np.int64))
+        caps = resolve_hier_caps(queues, prog.task, e_local, *pods)
+        owner = np.where(active, dest.astype(np.int64) % n_dev, 0)
+        _, n_drop = _hier_keep(dev_of, owner, active, caps, pods)
+        return AppStats(rounds=1,
+                        messages=np.array([int(active.sum())], np.int64),
+                        drops=np.array([n_drop], np.int64))
+
+    if setup is None:
+        setup = _graph_setup(data, n_dev, undirected=prog.undirected,
+                             seed=seed)
+    caps = _graph_caps(queues, prog.task, setup[-1], n_dev, pods)
+    msgs, drops = [], []
+    engine = None
+    if pods is None:
+        engine = TaskEngine(EngineConfig(
+            grid=TileGrid(1, n_dev),
+            queues=QueueConfig(default_iq=caps[0])), data.n)
+    for src, dst, n_drop in program_rounds(prog, data, n_dev, caps,
+                                           params=params, seed=seed,
+                                           pods=pods, max_rounds=max_rounds,
+                                           setup=setup):
+        if engine is not None:
+            rs = engine.route(prog.task, src_idx=src, dst_idx=dst)
+            if rs.drops != n_drop:
+                raise AssertionError(f"the engine's drops {rs.drops} differ "
+                                     f"from the keep rule's {n_drop}")
+            msgs.append(rs.tasks_total)
+            drops.append(rs.drops)
+        else:
+            msgs.append(len(dst))
+            drops.append(n_drop)
+    return AppStats(rounds=len(msgs),
+                    messages=np.asarray(msgs, np.int64),
+                    drops=np.asarray(drops, np.int64))

@@ -295,8 +295,10 @@ def dcra_spmv(g: CSR, x: np.ndarray, fabric, *,
               ) -> Tuple[np.ndarray, int]:
     """Distributed ``y = A @ x`` in one owner-routed round: ``(y [n]
     float32, dropped tasks)``. The capacity factor defaults to 2.0;
-    ``options.seed`` fixes the edge shuffle."""
-    y, stats = run_program(SPMV, (g, x), fabric, options=options)
+    ``options.seed`` fixes the edge shuffle; ``options.config`` resolves
+    against ``g``."""
+    y, stats = run_program(SPMV, (g, x), fabric, options=options,
+                           dataset=g)
     return y, stats.total_drops
 
 
@@ -306,5 +308,5 @@ def dcra_histogram(elements: np.ndarray, n_bins: int, fabric, *,
     """Distributed histogram in one owner-routed round (the histogram
     kernel on one shard): ``(counts [n_bins] float32, dropped tasks)``."""
     y, stats = run_program(HISTOGRAM, (elements, n_bins), fabric,
-                           options=options)
+                           options=options, dataset=elements)
     return y, stats.total_drops

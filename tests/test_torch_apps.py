@@ -257,6 +257,27 @@ def test_cache_stats_deltas_match_reference(reference):
     assert len(tprogram.cache_keys()) == 3
 
 
+def test_config_auto_runs():
+    """``config="auto"`` resolves a deployment and launches it, graph and
+    stream programs alike (the launch raised before the analytic stack
+    was ported): BFS drop-free at the folded capacity equals the oracle
+    exactly, SpMV within 1e-4 of max|y| (float32 summation order)."""
+    g = graph_of("er", tdata)
+    fab = fabric_of((4,))
+    d, stats = dcra_bfs(g, 0, fab, options=LaunchOptions(config="auto"))
+    assert stats.total_drops == 0
+    assert np.array_equal(d, tref.bfs_ref(g, 0))
+    from repro_torch.sparse.torch_apps import SPMV
+    x = np.ones(g.n)
+    y, st = tprogram.run_program(SPMV, (g, x), fab, dataset=g,
+                                 options=LaunchOptions(config="auto"))
+    want = tref.spmv_ref(g, x)
+    assert st.total_drops == 0
+    assert np.abs(y - want).max() <= 1e-4 * np.abs(want).max()
+    with pytest.raises(ValueError, match="unknown config"):
+        dcra_bfs(g, 0, fab, options=LaunchOptions(config="fast"))
+
+
 def test_precomputed_setup_is_reused_and_checked():
     g = graph_of("er", tdata)
     fab = fabric_of((8,))
@@ -271,12 +292,6 @@ def test_precomputed_setup_is_reused_and_checked():
 def test_unported_paths_raise():
     g = graph_of("er", tdata)
     fab = fabric_of((4,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcra_bfs(g, 0, fab, options=LaunchOptions(config="auto"))
-    from repro_torch.sparse.torch_apps import SPMV
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprogram.run_program(SPMV, (g, np.ones(g.n)), fab,
-                             options=LaunchOptions(config="auto"))
     with pytest.raises(ValueError, match="2\\^24"):
         dcra_wcc(types.SimpleNamespace(n=(1 << 24) + 1), fab)
     with pytest.raises(TypeError):

@@ -50,7 +50,12 @@ assert not bad, bad
 assert 'triton' not in sys.modules
 for name in ('serve', 'serve.batching', 'serve.engine', 'serve.options',
              'serve.resilience', 'serve.stats', 'runtime',
-             'runtime.fault_tolerance', 'sparse.program', 'core.routing'):
+             'runtime.fault_tolerance', 'sparse.program', 'core.routing',
+             'core.task_engine', 'core.topology', 'core.cache', 'costmodel',
+             'costmodel.energy', 'costmodel.params', 'costmodel.perf',
+             'costmodel.silicon', 'sparse.apps', 'dse', 'dse.autoconfig',
+             'dse.compare', 'dse.driver', 'dse.evaluate', 'dse.pareto',
+             'dse.shardcheck', 'dse.space', 'dse.sweep'):
     assert 'repro_torch.' + name in sys.modules, name
 """
 
