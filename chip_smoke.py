@@ -5,6 +5,7 @@
     python3 chip_smoke.py --bfs-rounds [SRC]   # BFS flat 64's round only
     python3 chip_smoke.py --rank-grid [SRC]    # the rank kernel's grid only
     python3 chip_smoke.py --dse                # phase 14 alone (after 2)
+    python3 chip_smoke.py --scale-out          # phase 15 alone (after 2)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -122,9 +123,29 @@ script exits non-zero with no result line:
    8 x 8 at the largest RMAT scale whose pod wire fits 16 GiB: the
    resolved ``LaunchConfig`` (source, point, score, caps),
    autoconfigure's host seconds, drops a round and TEPS, bit-identical
-   to the plain-torch path under the same ``LaunchConfig``.
+   to the plain-torch path under the same ``LaunchConfig``;
+15. scale-out: two worker processes (new processes of this script,
+   ``--scale-out-worker``, started after the build, so no worker runs
+   ``nvcc``) share the card (``cuda:0`` in both) as one
+   ``Fabric.distributed`` over gloo on 127.0.0.1, the crossing half of
+   every exchange staged through pinned host memory. Each builds its
+   inputs from the seed and runs, in order: BFS on RMAT-22 from phase
+   4's root, flat 64 (32 shards a process, factor 4) in lockstep and
+   pipelined, pod 8 x 8 (four pods a process: only the portal stage
+   crosses, factor 2) in lockstep; SSSP, WCC, k-core (k 12) and
+   PageRank (20 rounds) on RMAT-18, flat 8 and pod 2 x 4; the routed
+   histogram of ``histogram_data(2^24, 4096, seed=1)`` on flat 8; BFS
+   flat 64 once more. Each run equal to the one-process run of its
+   shape on the same card (states bit for bit, PageRank within twice
+   its float32 bound; rounds, message and drop streams), no drop, the
+   scatter ``staged`` and the reduce on the one-process run's design in
+   each worker; wall seconds and rates beside the one-process run's,
+   bytes out and host seconds of the staged exchange a round (wait,
+   device-to-host, gloo, host-to-device), each worker's peak card
+   memory. A worker that fails, or a peer that times out, fails the
+   phase.
 
-Each path of phases 4-7, 9-14 runs with every kernel's launch count set
+Each path of phases 4-7, 9-15 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -3062,6 +3083,319 @@ def run_dse(g, setup, root, device, totals):
              None, totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: scale-out, two processes sharing the card
+# ---------------------------------------------------------------------------
+
+SCALE_OUT_PROCS = 2
+SCALE_OUT_HIST_N = 1 << 24
+SCALE_OUT_PG_TIMEOUT = 300          # seconds: the gloo group's collectives
+SCALE_OUT_WAIT = 600                # seconds the parent waits for a worker
+KCORE_K = 12
+SCALE_OUT_POD = dict(pod_axis="pod", capacity_factor=2.0)
+#: (tag, data, app, fabric shape, axis names, LaunchOptions fields)
+SCALE_OUT_RUNS = (
+    ("bfs flat 64 lockstep", "rmat22", "bfs", (64,), ("data",),
+     dict(capacity_factor=4.0)),
+    ("bfs flat 64 pipelined", "rmat22", "bfs", (64,), ("data",),
+     dict(capacity_factor=4.0, round_mode="pipelined")),
+    ("bfs pod 8x8 lockstep", "rmat22", "bfs", (8, 8), ("pod", "data"),
+     SCALE_OUT_POD),
+    *((f"{app} {lay}", "rmat18", app, shape, names, kw)
+      for app in ("sssp", "wcc", "kcore", "pagerank")
+      for lay, shape, names, kw in (("flat 8", (8,), ("data",), {}),
+                                    ("pod 2x4", (2, 4), ("pod", "data"),
+                                     SCALE_OUT_POD))),
+    ("histogram flat 8", "hist", "histogram", (8,), ("data",), {}),
+    ("bfs flat 64 lockstep, again", "rmat22", "bfs", (64,), ("data",),
+     dict(capacity_factor=4.0)),
+)
+
+
+def scale_out_data(g22=None, setup22=None):
+    """Phase 15's inputs, from the seed: RMAT-22 and its packing onto 64
+    shards (phase 2's, reused when given), RMAT-18 and its packings onto
+    8 shards (directed, and both directions for WCC and k-core), and the
+    histogram stream; BFS and SSSP start at the highest-degree vertex.
+    Packings are set-up, outside the timed runs, as phase 4's."""
+    import numpy as np
+    from repro_torch.sparse import datasets
+    from repro_torch.sparse.program import _graph_setup
+    if g22 is None:
+        g22 = datasets.rmat(SCALE, seed=SEED)
+        setup22 = _graph_setup(g22, 64)
+    g18 = datasets.rmat(SMALL_SCALE, seed=SEED)
+    return {"rmat22": (g22, {False: setup22},
+                       int(np.argmax(g22.degrees()))),
+            "rmat18": (g18, {u: _graph_setup(g18, 8, undirected=u)
+                             for u in (False, True)},
+                       int(np.argmax(g18.degrees()))),
+            "hist": datasets.histogram_data(SCALE_OUT_HIST_N, HIST_BINS,
+                                            seed=SEED)}
+
+
+def scale_out_run(spec, data, fabric):
+    """One run of :data:`SCALE_OUT_RUNS` on ``fabric``: ``(states, rounds,
+    messages, drops, work)``, ``work`` the edges (TEPS), edges x rounds
+    or elements the run's rate counts."""
+    import numpy as np
+    from repro_torch.sparse import program
+    from repro_torch.sparse.options import LaunchOptions
+    from repro_torch.sparse.torch_apps import PROGRAMS, dcra_histogram
+    _, key, app, _, _, kw = spec
+    opts = LaunchOptions(**kw)
+    if app == "histogram":
+        y, dropped = dcra_histogram(data[key], HIST_BINS, fabric,
+                                    options=opts)
+        return ((y,), 1, np.array([len(data[key])]), np.array([dropped]),
+                len(data[key]))
+    g, setups, root = data[key]
+    params = {"bfs": {"root": root}, "sssp": {"root": root}, "wcc": {},
+              "kcore": {"k": float(KCORE_K)},
+              "pagerank": {"damping": 0.85, "iters": 20}}[app]
+    prog = PROGRAMS[app]
+    states, st = program.run_program(prog, g, fabric, options=opts,
+                                     params=params,
+                                     setup=setups[prog.undirected])
+    if app in ("bfs", "sssp"):
+        work = int(g.degrees()[np.isfinite(states[0])].sum())
+    else:
+        work = g.nnz * st.rounds
+    return states, st.rounds, st.messages, st.drops, work
+
+
+def scale_out_worker(coord, pid, out_dir):
+    """``--scale-out-worker COORD PID DIR``: one process of phase 15. Joins
+    the gloo group at ``COORD`` as process ``PID`` with a fabric of each
+    run's shape on the card, builds phase 15's inputs from the seed, runs
+    :data:`SCALE_OUT_RUNS` in order, and writes
+    each run's states (``p<PID>_<i>.npy``) and a record of its wall
+    seconds, rounds, streams, launches, route designs, exchange counters
+    and peak card memory (``p<PID>.json``) into ``DIR``. It loads the
+    kernels the parent built and fails if it had to build one."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.kernels import _build, route
+    pid, out_dir = int(pid), Path(out_dir)
+    built = [k for k, r in _build.build().items() if r["seconds"]]
+    if built:
+        raise AssertionError(f"worker {pid} built {built}: the parent "
+                             f"builds every kernel before it starts")
+    device = torch.device(*CARD)
+    fabs = {}
+
+    def fabric(shape, names):
+        if (shape, names) not in fabs:
+            fabs[shape, names] = Fabric.distributed(
+                shape, names, coordinator_address=coord,
+                num_processes=SCALE_OUT_PROCS, process_id=pid, device=device,
+                timeout=SCALE_OUT_PG_TIMEOUT)
+        return fabs[shape, names]
+    t0 = time.perf_counter()
+    fabric((64,), ("data",))
+    join_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = scale_out_data()
+    setup_s = time.perf_counter() - t0
+    records = []
+    for i, spec in enumerate(SCALE_OUT_RUNS):
+        fab = fabric(spec[3], spec[4])
+        torch.cuda.synchronize()
+        reset_launches()
+        fab.exchange.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()                 # both processes start the clock together
+        t0 = time.perf_counter()
+        states, rounds, msgs, drops, work = scale_out_run(spec, data, fab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        records.append({
+            "tag": spec[0], "wall_s": wall, "rounds": int(rounds),
+            "messages": np.asarray(msgs).tolist(),
+            "drops": np.asarray(drops).tolist(), "work": int(work),
+            "launches": read_launches(),
+            "paths": {k: dict(v) for k, v in route.PATHS.items()},
+            "exchange": dict(fab.exchange.stats),
+            "peak_bytes": int(torch.cuda.max_memory_allocated()),
+            "local_shards": list(fab.local_shards),
+            "dcn_axes": list(fab.dcn_axes())})
+        np.save(out_dir / f"p{pid}_{i}.npy", np.stack(states))
+    (out_dir / f"p{pid}.json").write_text(json.dumps(
+        {"join_s": join_s, "setup_s": setup_s, "records": records}))
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(out_dir):
+    """Start :data:`SCALE_OUT_PROCS` workers (new processes of this
+    script, ``cuda:0`` in each) and wait for all of them; a worker that
+    fails, or a wait past :data:`SCALE_OUT_WAIT`, stops the others and
+    raises with the tails of their logs."""
+    coord = f"127.0.0.1:{free_port()}"
+    logs = [out_dir / f"p{pid}.log" for pid in range(SCALE_OUT_PROCS)]
+    procs = []
+    try:
+        for pid, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--scale-out-worker", coord, str(pid), str(out_dir)],
+                    stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+        deadline = time.perf_counter() + SCALE_OUT_WAIT
+        while any(p.poll() is None for p in procs):
+            if (any(p.returncode not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        tails = "\n".join(f"--- worker {pid} (rc {rc}):\n"
+                          + path.read_text()[-3000:]
+                          for pid, (rc, path) in enumerate(zip(rcs, logs)))
+        raise AssertionError(f"scale-out: workers ended with {rcs}\n{tails}")
+    return [json.loads((out_dir / f"p{pid}.json").read_text())
+            for pid in range(SCALE_OUT_PROCS)]
+
+
+def run_scale_out(device, totals, g22=None, setup22=None):
+    """Phase 15: :data:`SCALE_OUT_RUNS` in one process on the card (virtual
+    fabrics), then in two worker processes that share the card over one
+    gloo group (``Fabric.distributed``, shards process-major: 32 of 64
+    flat shards a process, four of eight pods, so on the pod fabric only
+    the portal stage crosses). Each worker's run must equal the
+    one-process run of its shape: states bit for bit (PageRank within
+    twice its float32 bound), rounds, message and drop streams; no drop;
+    the scatter ``staged`` and the reduce on the one-process run's design
+    in each worker. Prints each run's rates beside the one-process run's,
+    the bytes and host seconds of the staged exchange a round, and each
+    worker's peak card memory; the workers' launches join ``totals``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.kernels import route
+    data = scale_out_data(g22, setup22)
+    refs = []
+    for spec in SCALE_OUT_RUNS:
+        fab = Fabric.virtual(spec[3], spec[4], device=device)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = scale_out_run(spec, data, fab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        design = max(route.PATHS["reduce_received"],
+                     key=route.PATHS["reduce_received"].get)
+        ran_only(route.PATHS["reduce_received"], design,
+                 f"scale-out {spec[0]}, one process: reduce_received")
+        refs.append((out, wall, design))
+        if int(np.sum(out[3])):
+            raise AssertionError(f"scale-out {spec[0]}: the one-process run "
+                                 f"dropped {int(np.sum(out[3]))} tasks")
+    bound = pagerank_bound(data["rmat18"][0], device, n_dev=8)
+    del data
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "scale_out"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    workers = run_workers(out_dir)
+    log(f"scale-out: {SCALE_OUT_PROCS} workers on {device} "
+        f"(gloo over 127.0.0.1, staged through pinned host memory) "
+        f"{time.perf_counter() - t0:.2f} s in all; join s "
+        f"{[round(w['join_s'], 2) for w in workers]}, inputs from the seed "
+        f"s {[round(w['setup_s'], 2) for w in workers]} [{SMI}]")
+    for i, spec in enumerate(SCALE_OUT_RUNS):
+        tag, key, app = spec[:3]
+        (states, rounds, msgs, drops, work), ref_wall, design = refs[i]
+        unit = {"bfs": "TEPS", "sssp": "TEPS", "histogram": "elements/s"
+                }.get(app, "edges*rounds/s")
+        want = np.stack(states)
+        for pid, w in enumerate(workers):
+            rec = w["records"][i]
+            got = np.load(out_dir / f"p{pid}_{i}.npy")
+            same = (rec["rounds"] == rounds
+                    and rec["messages"] == np.asarray(msgs).tolist()
+                    and rec["drops"] == np.asarray(drops).tolist())
+            if app == "pagerank":
+                held_to(f"scale-out {tag} p{pid} ranks", got[0], want[0],
+                        2 * bound)
+                same = same and np.array_equal(got[1:], want[1:])
+            else:
+                same = same and np.array_equal(got, want)
+            if not same or sum(rec["drops"]):
+                raise AssertionError(f"scale-out {tag} p{pid}: differs from "
+                                     f"the one-process run or dropped")
+            missing = [k for k in ROUTE_KERNELS if not rec["launches"][k]]
+            if missing:
+                raise AssertionError(f"scale-out {tag} p{pid}: never "
+                                     f"launched {missing}")
+            ran_only(rec["paths"]["bucket_scatter"], "staged",
+                     f"scale-out {tag} p{pid}: bucket_scatter")
+            ran_only(rec["paths"]["reduce_received"], design,
+                     f"scale-out {tag} p{pid}: reduce_received")
+            for k, v in rec["launches"].items():
+                totals[k] += v
+            ex = rec["exchange"]
+            r = max(rec["rounds"], 1)
+            log(f"scale-out {tag} p{pid} (shards {rec['local_shards']}, "
+                f"crossing {rec['dcn_axes']}): wall {rec['wall_s']:.4f} s, "
+                f"rounds {rec['rounds']}, {unit} "
+                f"{rec['work'] / rec['wall_s']:.4e} (one process: wall "
+                f"{ref_wall:.4f} s, {work / ref_wall:.4e}); exchanges "
+                f"{ex['calls']}, bytes out {ex['bytes_out']} "
+                f"({ex['bytes_out'] / r:.4e} a round); host s a round: wait "
+                f"{ex['wait_s'] / r:.4f} d2h {ex['d2h_s'] / r:.4f} gloo "
+                f"{ex['gloo_s'] / r:.4f} h2d {ex['h2d_s'] / r:.4f}; peak card "
+                f"memory {rec['peak_bytes']} B; launches {rec['launches']} "
+                f"[{SMI}]")
+        log(f"scale-out {tag}: both processes equal to the one-process run "
+            f"(states{' (ranks within twice the float32 bound)' if app == 'pagerank' else ''}, "
+            f"rounds, message and drop streams), no drop, reduce {design}")
+    log(f"scale-out: peak card memory a worker "
+        f"{[max(r['peak_bytes'] for r in w['records']) for w in workers]} B"
+        f" [{SMI}]")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def scale_out_only():
+    """``--scale-out``: the build, RMAT-22 and its packing (phase 2) and
+    phase 15 alone; its launch counts are printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.sparse import datasets
+    from repro_torch.sparse.program import _graph_setup
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    g = datasets.rmat(SCALE, seed=SEED)
+    setup = _graph_setup(g, 64)
+    t0 = phase(f"rmat-{SCALE} and its packing", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_scale_out(torch.device(*CARD), totals, g, setup)
+    phase("15 (scale-out, two processes)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
 def bfs_rounds(src):
     """``--bfs-rounds [SRC]``: BFS on RMAT-22, flat 64 shards at factor 4,
     with the ``repro_torch`` package found under ``SRC`` (default: this
@@ -3163,6 +3497,10 @@ def main() -> int:
                               else ROOT / "src")
     if sys.argv[1:2] == ["--dse"]:
         return dse_only()
+    if sys.argv[1:2] == ["--scale-out"]:
+        return scale_out_only()
+    if sys.argv[1:2] == ["--scale-out-worker"]:
+        return scale_out_worker(*sys.argv[2:5])
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import routing
@@ -3277,8 +3615,13 @@ def main() -> int:
     # ---- 14: the DSE sweep, the twin at scale, config="auto" ---------------
     torch.cuda.empty_cache()
     run_dse(g, setup, root, device, totals)
-    del g, setup
     t0 = phase("14 (DSE, twin rmat-18, config=auto rmat-22)", t0)
+
+    # ---- 15: scale-out, two processes sharing the card ---------------------
+    torch.cuda.empty_cache()
+    run_scale_out(device, totals, g, setup)
+    del g, setup
+    t0 = phase("15 (scale-out, two processes)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

@@ -154,6 +154,10 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         queues = dispatch_queues(mc)
     impl = resolve_route_impl(queues.route_impl)
     fab = info.mesh
+    if fab.is_multiprocess:
+        raise NotImplementedError(
+            "moe_dcra on a distributed fabric is not ported yet (ROADMAP.md "
+            "queue 1, item 4: scale-out remainders)")
     if x.device != fab.device:
         raise ValueError(f"x is on {x.device}, the fabric on {fab.device}")
     E, K = mc.num_experts, mc.top_k

@@ -18,6 +18,17 @@ and :meth:`Fabric.shard_slice` are the
 collectives and index helpers of a ``shard_map`` body, over one axis or
 a tuple of axes (linear index row-major in the tuple's order, as
 ``jax.lax.axis_index`` of a tuple).
+
+:meth:`Fabric.distributed` spreads the shards over processes joined by
+``torch.distributed`` (gloo), process-major as ``jax.devices()`` orders
+devices: process ``p`` holds the contiguous shards ``[p*L, (p+1)*L)``,
+``L = n_devices / n_processes``, stacked on the leading dimension of its
+own device, so the leading axis is the one that crosses processes. Its
+round loop exchanges through :attr:`Fabric.exchange`
+(:class:`repro_torch.core.scaleout.ProcessExchange`), sums with
+:meth:`Fabric.gsum` and tests convergence with :meth:`Fabric.global_any`;
+on a virtual fabric those are the local transpose, the local sum and the
+local test, unchanged.
 """
 from __future__ import annotations
 
@@ -55,14 +66,35 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def balanced_slice(total: int, rank: int, world: int) -> Tuple[int, int]:
+    """Rank ``rank``'s contiguous ``[lo, hi)`` share of ``total`` items
+    split near-evenly over ``world`` (the first ``total % world`` ranks
+    take one more)."""
+    base, rem = divmod(int(total), int(world))
+    lo = rank * base + min(rank, rem)
+    return lo, lo + base + (1 if rank < rem else 0)
+
+
 @dataclass(frozen=True)
 class Fabric:
     """Frozen topology of one launch: axis names, axis sizes, device.
-    ``portal_axis`` names the axis that crosses pods (``None`` = flat)."""
+    ``portal_axis`` names the axis that crosses pods (``None`` = flat).
+    ``process_index`` / ``n_processes`` place it over processes
+    (:meth:`distributed`); a virtual fabric is process 0 of 1."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     device: torch.device
     portal_axis: Optional[str] = None
+    process_index: int = 0
+    n_processes: int = 1
+
+    def __post_init__(self):
+        if self.n_devices % self.n_processes:
+            raise ValueError(f"{self.n_devices} shards {self.shape} do not "
+                             f"split over {self.n_processes} processes")
+        if not 0 <= self.process_index < self.n_processes:
+            raise ValueError(f"process {self.process_index} outside "
+                             f"{self.n_processes}")
 
     @classmethod
     def virtual(cls, axis_shapes: Sequence[int], axis_names: Sequence[str],
@@ -86,6 +118,39 @@ class Fabric:
         """A flat ``n_dev``-shard fabric."""
         return cls.virtual((int(n_dev),), (axis,), device=device)
 
+    @classmethod
+    def distributed(cls, axis_shapes: Optional[Sequence[int]] = None,
+                    axis_names: Optional[Sequence[str]] = None, *,
+                    coordinator_address: Optional[str] = None,
+                    num_processes: Optional[int] = None,
+                    process_id: Optional[int] = None,
+                    portal_axis: Optional[str] = None, device=None,
+                    timeout: float = 300.0) -> "Fabric":
+        """A fabric over ``num_processes`` processes joined by
+        ``torch.distributed`` with gloo (``repro/core/fabric.py:134-166``).
+
+        Joins the process group at ``tcp://coordinator_address`` (a
+        group already initialised is reused), with a collective timeout
+        of ``timeout`` seconds. The shards are process-major: process
+        ``p`` holds the contiguous shards ``[p*L, (p+1)*L)`` on its own
+        ``device`` (default the card), so declare the portal axis first
+        (``(n_proc, local)``, ``("portal", "data")``) and only the portal
+        stage crosses processes. With no shape, the fabric is flat: one
+        ``data`` axis, one shard a process. A shape whose shard count
+        does not split over the processes raises ``ValueError``."""
+        from .scaleout import join_process_group
+        if axis_shapes is not None and axis_names is None:
+            raise ValueError("axis_names is required with axis_shapes")
+        dev = resolve_device(device)
+        world, rank = join_process_group(coordinator_address, num_processes,
+                                         process_id, timeout,
+                                         axis_shapes=axis_shapes)
+        if axis_shapes is None:
+            axis_shapes, axis_names = (world,), ("data",)
+        fab = cls.virtual(axis_shapes, axis_names, device=dev,
+                          portal_axis=portal_axis)
+        return replace(fab, process_index=rank, n_processes=world)
+
     @cached_property
     def axis_sizes(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.shape))
@@ -104,8 +169,104 @@ class Fabric:
         return self.portal_axis
 
     def fabric_key(self) -> tuple:
-        """Stable identity for the round-function cache."""
-        return (self.axis_names, self.shape, str(self.device))
+        """Stable identity for the round-function cache: a distributed
+        fabric holds fewer shards a process than the virtual one of its
+        shape, so the process placement is part of it."""
+        return (self.axis_names, self.shape, str(self.device),
+                (self.process_index, self.n_processes))
+
+    # ---- multi-process topology -----------------------------------------
+
+    @property
+    def process_indices(self) -> Tuple[int, ...]:
+        """The processes that hold this fabric's shards (``(0,)`` on a
+        virtual fabric)."""
+        return tuple(range(self.n_processes))
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return self.n_processes > 1
+
+    @property
+    def n_local_shards(self) -> int:
+        """Shards this process holds: the leading dimension of its
+        tensors."""
+        return self.n_devices // self.n_processes
+
+    @property
+    def local_shards(self) -> Tuple[int, int]:
+        """The ``[lo, hi)`` global shard rows this process holds (all of
+        them on a virtual fabric)."""
+        lo = self.process_index * self.n_local_shards
+        return lo, lo + self.n_local_shards
+
+    def dcn_axes(self) -> Tuple[str, ...]:
+        """Axes along which neighbouring shards live in different
+        processes: the axes whose exchanges cross processes. Empty on a
+        virtual fabric."""
+        if not self.is_multiprocess:
+            return ()
+        procs = (np.arange(self.n_devices) // self.n_local_shards
+                 ).reshape(self.shape)
+        return tuple(name for i, name in enumerate(self.axis_names)
+                     if self.shape[i] > 1
+                     and bool((np.diff(procs, axis=i) != 0).any()))
+
+    def host_slice(self, total: int, *, rank: Optional[int] = None,
+                   world: Optional[int] = None) -> Tuple[int, int]:
+        """This process's contiguous ``[lo, hi)`` share of ``total`` ingest
+        items (edge chunks, rows), balanced over the fabric's processes;
+        ``rank`` / ``world`` stand in for the fabric's own."""
+        world = self.n_processes if world is None else int(world)
+        rank = self.process_index if rank is None else int(rank)
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside world {world}")
+        return balanced_slice(total, rank, world)
+
+    def local_rows(self, x):
+        """This process's rows ``[lo, hi)`` of a global ``[S, ...]`` array
+        (numpy or tensor; the array itself on a virtual fabric)."""
+        if not self.is_multiprocess:
+            return x
+        lo, hi = self.local_shards
+        return x[lo:hi]
+
+    @cached_property
+    def exchange(self):
+        """The all_to_all across processes
+        (:class:`repro_torch.core.scaleout.ProcessExchange`), ``None`` on
+        a virtual fabric, whose exchange is the local transpose."""
+        if not self.is_multiprocess:
+            return None
+        from .scaleout import ProcessExchange
+        return ProcessExchange(self)
+
+    def gsum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of per-shard values ``x [L, ...]`` over every shard of the
+        fabric, handed back to each (the reference's ``psum`` over all
+        axes): the local sum, then, across processes, a gloo
+        ``all_reduce``."""
+        total = x.sum(0, keepdim=True)
+        if self.is_multiprocess:
+            total = self.exchange.all_reduce(total, "sum")
+        return total.expand_as(x)
+
+    def global_any(self, flag: torch.Tensor) -> bool:
+        """Whether ``flag`` (any shape, bool) holds anywhere on the
+        fabric: one blocking host read, and across processes an
+        ``all_reduce(MAX)`` of it."""
+        local = flag.any()
+        if self.is_multiprocess:
+            local = self.exchange.all_reduce(local.to(torch.int32), "max")
+        return bool(local)
+
+    def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """The global ``[S, ...]`` from every process's rows ``[L, ...]``
+        (gloo ``all_gather``), on ``x``'s device; ``x`` itself on a
+        virtual fabric."""
+        if not self.is_multiprocess:
+            return x
+        return self.exchange.all_gather(x)
 
     # ---- analytic-model hooks ------------------------------------------
 

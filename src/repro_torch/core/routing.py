@@ -11,7 +11,9 @@ holds the N tasks of each of the S shards). A round is:
      and counted;
   2. *deliver*: value and int32 metadata columns are packed into one f32
      wire array (ints bitcast, never converted) and exchanged by
-     :func:`noc_all_to_all`, a transpose of ``[S_src, S_dst, cap, C]``;
+     :func:`noc_all_to_all`, a transpose of ``[S_src, S_dst, cap, C]``
+     (on a distributed fabric, its ``exchange``: the blocks that stay in
+     the process permuted locally, the rest staged across over gloo);
   3. on the pod/portal path, stage 1 routes over the intra-pod axis to
      the destination's portal and stage 2 hops once over the pod axis.
 
@@ -22,6 +24,12 @@ half (:func:`owner_route_finish`); :func:`local_route_reduce` is a whole
 round whose producer and consumer are one shard.
 
 Shard id on the pod/portal path: ``g = pod * n_intra + intra``.
+
+Every function that exchanges takes ``exchange``: ``None`` (a virtual
+fabric) runs the local transpose; a distributed fabric passes its
+:attr:`~repro_torch.core.fabric.Fabric.exchange`, and then the leading
+dimension holds this process's shards only, while shard counts, owners
+and the fabric ``shape`` stay global.
 """
 from __future__ import annotations
 
@@ -152,14 +160,17 @@ def slot_scatter(data: torch.Tensor, slot: torch.Tensor, valid: torch.Tensor,
 # the NoC round: one fused all_to_all
 # ---------------------------------------------------------------------------
 
-def noc_all_to_all(x, shape: Sequence[int], dim):
+def noc_all_to_all(x, shape: Sequence[int], dim, exchange=None):
     """The tiled ``all_to_all`` over fabric axis ``dim`` of ``shape`` (or
     over a tuple of axes, the peers in their linear order over the tuple,
     as ``lax.all_to_all`` over a tuple of axis names): ``x [S, B*rows,
     C]`` holds, per shard, one block of ``rows`` for each of the ``B``
     peers. Shard ``d`` receives block ``d`` of every peer, in peer
-    order."""
+    order. ``exchange`` (a distributed fabric's) runs it across
+    processes on this process's shards."""
     dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    if exchange is not None:
+        return exchange(x, shape, dims)
     s, total, c = x.shape
     n = len(shape)
     peers = [shape[d] for d in dims]
@@ -233,30 +244,33 @@ def unpack_wire(recv: torch.Tensor, meta: tuple
     return v_out, ints
 
 
-def fused_all_to_all(vals, int_cols, shape: Sequence[int], dim):
+def fused_all_to_all(vals, int_cols, shape: Sequence[int], dim,
+                     exchange=None):
     """Deliver value + int32 columns in ONE exchange over fabric axis
     ``dim`` or a tuple of axes (see :func:`pack_wire` and
     :func:`noc_all_to_all`)."""
     packed, meta = pack_wire(vals, int_cols)
-    return unpack_wire(noc_all_to_all(packed, shape, dim), meta)
+    return unpack_wire(noc_all_to_all(packed, shape, dim, exchange), meta)
 
 
 # ---------------------------------------------------------------------------
 # owner-routed rounds (bucket + fused a2a), flat and hierarchical
 # ---------------------------------------------------------------------------
 
-def owner_route(vals, slot_ids, owner, valid, n_shards, cap, impl=None):
+def owner_route(vals, slot_ids, owner, valid, n_shards, cap, impl=None,
+                exchange=None):
     """One flat round: route ``(slot_ids, vals)`` tasks ``[S, N]`` to
     shard ``owner``. Returns ``(recv_slot [S, S*cap], recv_val,
     n_drop [S])``; ``recv_slot`` is -1 for an empty queue entry."""
     xb, (slot_b,), _, n_drop = bucket(vals[..., None], owner, valid,
                                       [slot_ids], n_shards, cap, impl=impl)
-    recv_vals, (recv_slot,) = fused_all_to_all(xb, [slot_b], (n_shards,), 0)
+    recv_vals, (recv_slot,) = fused_all_to_all(xb, [slot_b], (n_shards,), 0,
+                                               exchange)
     return recv_slot, recv_vals[..., 0].contiguous(), n_drop
 
 
 def owner_route_hier(vals, slot_ids, owner, valid, n_intra, n_pods, cap1,
-                     cap2, impl=None):
+                     cap2, impl=None, exchange=None):
     """Two-stage pod/portal round (paper §III-A): stage 1 to the portal in
     the sender's pod with the owner's intra-pod coordinate, stage 2 over
     the pod axis. Returns ``(recv_slot [S, n_pods*cap2], recv_val,
@@ -267,10 +281,11 @@ def owner_route_hier(vals, slot_ids, owner, valid, n_intra, n_pods, cap1,
     xb, (pc_b, slot_b), _, drop1 = bucket(vals[..., None], e_coord, valid,
                                           [p_coord, slot_ids], n_intra, cap1,
                                           impl=impl)
-    v1, (pc1, slot1) = fused_all_to_all(xb, [pc_b, slot_b], shape, 1)
+    v1, (pc1, slot1) = fused_all_to_all(xb, [pc_b, slot_b], shape, 1,
+                                        exchange)
     xb2, (slot2_b,), _, drop2 = bucket(v1, pc1.clamp(min=0), pc1 >= 0,
                                        [slot1], n_pods, cap2, impl=impl)
-    v2, (recv_slot,) = fused_all_to_all(xb2, [slot2_b], shape, 0)
+    v2, (recv_slot,) = fused_all_to_all(xb2, [slot2_b], shape, 0, exchange)
     return recv_slot, v2[..., 0].contiguous(), drop1 + drop2
 
 
@@ -279,7 +294,7 @@ def owner_route_hier(vals, slot_ids, owner, valid, n_intra, n_pods, cap1,
 # ---------------------------------------------------------------------------
 
 def _a2a_with_signal(vals, int_cols, shape: Sequence[int], dim: int,
-                     signal: torch.Tensor):
+                     signal: torch.Tensor, exchange=None):
     """Pack ``vals`` and ``int_cols`` (see :func:`pack_wire`; ``[S,
     B*rows]`` tasks, B the peers over fabric axis ``dim``) with one signal
     row appended to each destination block, the int32 ``signal [S]``
@@ -304,7 +319,7 @@ def _a2a_with_signal(vals, int_cols, shape: Sequence[int], dim: int,
     wire[:, :, rows] = 0.0
     wire[:, :, rows, 0] = signal.to(torch.int32).view(torch.float32)[:, None]
     recv = noc_all_to_all(wire.view(s, n_blocks * (rows + 1), c), shape,
-                          dim).view(s, n_blocks, rows + 1, c)
+                          dim, exchange).view(s, n_blocks, rows + 1, c)
     gsignal = recv[:, :, rows, 0].contiguous().view(torch.int32).sum(
         1, dtype=torch.int32)
     return recv, meta, gsignal
@@ -322,7 +337,7 @@ def _unpack_signalled(recv: torch.Tensor, meta: tuple):
 
 
 def owner_route_start(vals, slot_ids, owner, valid, n_shards, cap, signal,
-                      impl=None):
+                      impl=None, exchange=None):
     """Produce half of one flat round: bucket, pack and exchange, the
     int32 ``signal [S]`` riding along (:func:`_a2a_with_signal`).
     Returns ``(recv, meta, n_drop [S], gsignal [S])``; hand ``(recv,
@@ -331,7 +346,7 @@ def owner_route_start(vals, slot_ids, owner, valid, n_shards, cap, signal,
     xb, (slot_b,), _, n_drop = bucket(vals[..., None], owner, valid,
                                       [slot_ids], n_shards, cap, impl=impl)
     recv, meta, gsignal = _a2a_with_signal(xb, [slot_b], (n_shards,), 0,
-                                           signal)
+                                           signal, exchange)
     return recv, meta, n_drop, gsignal
 
 
@@ -343,7 +358,7 @@ def owner_route_finish(recv, meta):
 
 
 def owner_route_hier_start(vals, slot_ids, owner, valid, n_intra, n_pods,
-                           cap1, cap2, signal, impl=None):
+                           cap1, cap2, signal, impl=None, exchange=None):
     """Produce half of one pod/portal round: both stages run here (stage
     2's bucketing needs stage 1's receive), so the pod-crossing exchange
     is the one carried. The signal crosses both stages: stage 1 sums it
@@ -357,11 +372,12 @@ def owner_route_hier_start(vals, slot_ids, owner, valid, n_intra, n_pods,
                                           [p_coord, slot_ids], n_intra, cap1,
                                           impl=impl)
     recv1, meta1, sig1 = _a2a_with_signal(xb, [pc_b, slot_b], shape, 1,
-                                          signal)
+                                          signal, exchange)
     v1, (pc1, slot1) = _unpack_signalled(recv1, meta1)
     xb2, (slot2_b,), _, drop2 = bucket(v1, pc1.clamp(min=0), pc1 >= 0,
                                        [slot1], n_pods, cap2, impl=impl)
-    recv2, meta2, gsignal = _a2a_with_signal(xb2, [slot2_b], shape, 0, sig1)
+    recv2, meta2, gsignal = _a2a_with_signal(xb2, [slot2_b], shape, 0, sig1,
+                                             exchange)
     return recv2, meta2, drop1 + drop2, gsignal
 
 

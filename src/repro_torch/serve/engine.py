@@ -250,6 +250,10 @@ class ProgramServer:
         if not isinstance(fabric, Fabric):
             raise TypeError(f"fabric must be a repro_torch Fabric, got "
                             f"{type(fabric).__name__}")
+        if fabric.is_multiprocess:
+            raise NotImplementedError(
+                "ProgramServer on a distributed fabric is not ported yet "
+                "(ROADMAP.md queue 1, item 4: scale-out remainders)")
         self.options = (options or LaunchOptions()).resolve()
         self.fabric = fabric
         self.axis = self.options.axis

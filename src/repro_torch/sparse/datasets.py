@@ -1,15 +1,20 @@
 """Seeded graph generators (counterpart of ``repro/sparse/datasets.py``).
 
-Numpy only, and byte-identical to the JAX package's generators for the
-same arguments: the same generator calls in the same order.
+Numpy, and byte-identical to the JAX package's generators for the same
+arguments: the same generator calls in the same order. The chunk-seeded
+ingest (:func:`rmat_edge_chunk`, :func:`ingest_edges`) lets each process
+of a distributed fabric draw only its share of an RMAT edge stream.
 """
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
+from ..core.fabric import balanced_slice
 from .csr import CSR, from_edges
 
 # Graph500 RMAT parameters
@@ -79,6 +84,66 @@ def rmat(scale: int, edge_factor: int = 16, seed: int = 1,
     return from_edges(V, src, dst, w)
 
 
+# ---------------------------------------------------------------------------
+# chunk-seeded ingest: no process draws the whole edge list
+# ---------------------------------------------------------------------------
+
+def rmat_edge_chunk(scale: int, chunk_id: int, n_chunks: int,
+                    edge_factor: int = 16, seed: int = 1) -> tuple:
+    """Chunk ``chunk_id`` of ``n_chunks`` of an RMAT-<scale> edge stream:
+    directed ``(src, dst, w)`` (``repro/sparse/datasets.py:66-93``). Each
+    chunk draws from its own ``SeedSequence((seed, chunk_id))``, so the
+    union over chunks depends on ``(scale, edge_factor, seed, n_chunks)``
+    only, not on which process draws which chunk; the Graph500 vertex
+    permutation comes from ``seed`` alone, the same for every chunk.
+    Self-loops are dropped; duplicates are kept (a multigraph)."""
+    V = 1 << scale
+    E = V * edge_factor
+    lo, hi = (chunk_id * E) // n_chunks, ((chunk_id + 1) * E) // n_chunks
+    rng = np.random.default_rng(np.random.SeedSequence((seed, chunk_id)))
+    src, dst = _rmat_pairs(scale, hi - lo, rng)
+    perm = np.random.default_rng(seed).permutation(V)
+    src, dst = perm[src], perm[dst]
+    w = rng.integers(1, 256, len(src)).astype(np.float32)
+    keep = src != dst
+    return src[keep], dst[keep], w[keep]
+
+
+def ingest_edges(scale: int, edge_factor: int = 16, seed: int = 1, *,
+                 n_chunks: int = 16, fabric=None,
+                 rank: Optional[int] = None, world: Optional[int] = None,
+                 undirected: bool = True) -> tuple:
+    """This process's share of a chunked RMAT edge stream ``(src, dst,
+    w)``: the contiguous run of chunks ``fabric.host_slice(n_chunks)``
+    gives it (``rank`` / ``world`` stand in for the fabric's; with
+    neither, the whole stream). ``undirected`` mirrors the local chunks,
+    so the union over processes is still independent of the split."""
+    if fabric is not None:
+        lo, hi = fabric.host_slice(n_chunks, rank=rank, world=world)
+    else:
+        lo, hi = balanced_slice(n_chunks, int(rank or 0), int(world or 1))
+    parts = [rmat_edge_chunk(scale, c, n_chunks, edge_factor, seed)
+             for c in range(lo, hi)]
+    if parts:
+        src, dst, w = (np.concatenate(a) for a in zip(*parts))
+    else:                                   # more processes than chunks
+        src, dst = np.zeros(0, np.int64), np.zeros(0, np.int64)
+        w = np.zeros(0, np.float32)
+    if undirected:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        w = np.concatenate([w, w])
+    return src, dst, w
+
+
+def ingest_graph(scale: int, edge_factor: int = 16, seed: int = 1, *,
+                 n_chunks: int = 16, undirected: bool = True) -> CSR:
+    """The whole chunked stream as one multigraph CSR (parallel edges
+    accumulate), on one process: what the per-process shares add up to."""
+    src, dst, w = ingest_edges(scale, edge_factor, seed, n_chunks=n_chunks,
+                               undirected=undirected)
+    return from_edges(1 << scale, src, dst, w)
+
+
 def erdos_renyi(n: int, avg_degree: float = 8.0, seed: int = 5,
                 undirected: bool = True) -> CSR:
     """G(n, p) with p = avg_degree / n."""
@@ -134,6 +199,29 @@ def wiki_like(n_vertices: int = 4096, avg_degree: int = 25,
     w = rng.integers(1, 256, len(src)).astype(np.float32)
     return from_edges(n_vertices, src.astype(np.int64), dst.astype(np.int64),
                       w)
+
+
+@dataclass(frozen=True)
+class DatasetInfo:
+    """Analytic footprint of one of the paper's full-scale datasets
+    (§IV-A)."""
+    name: str
+    vertices: int
+    edges: int
+
+    @property
+    def footprint_bytes(self) -> float:
+        # CSR: row_ptr (8 B/V) + col_idx (4 B/E) + values (4 B/E) + output
+        # (4 B/V)
+        return 12.0 * self.vertices + 8.0 * self.edges
+
+
+PAPER_DATASETS = {
+    "R22": DatasetInfo("RMAT-22", 1 << 22, int(1 << 22) * 32),
+    "R25": DatasetInfo("RMAT-25", 1 << 25, int(1 << 25) * 32),
+    "R26": DatasetInfo("RMAT-26", 1 << 26, int(1.3e9)),
+    "WK": DatasetInfo("Wikipedia", 4_200_000, 101_000_000),
+}
 
 
 def histogram_data(n: int = 1 << 16, n_bins: int = 1 << 12,

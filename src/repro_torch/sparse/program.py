@@ -15,6 +15,17 @@ Layout: vertex ``v`` lives on shard ``v % S`` at local slot ``v // S``;
 edges are partitioned by the owner of their source vertex. Shard state
 is ``[S, n_local]`` float32, edges ``[S, E_max]``.
 
+On a distributed fabric (:meth:`Fabric.distributed`) every process packs
+the same global inputs, deterministic from the seed, and copies only its
+own rows ``[lo, hi)`` (:attr:`Fabric.local_shards`) to its device: the
+leading dimension is local, the owner arithmetic stays global. The round
+loop exchanges through the fabric's ``exchange``, ``Ctx.gsum`` and the
+convergence test reduce across processes, message and drop counts are
+reduced once after the loop, and :meth:`ProgramLaunch.result` gathers the
+states, so every process returns the global arrays. Every process issues
+the same collectives in the same order: no host decision of a launch
+depends on one process's data alone.
+
 ``options.config`` resolves the launch's deployment through
 :func:`resolve_launch` (``"auto"``: the Pareto-guided selection of
 :mod:`repro_torch.dse.autoconfig`): its pod/portal routing and its IQ
@@ -78,15 +89,11 @@ class Ctx:
     """What a program rule sees. Rules take torch tensors with the shard
     on the leading dimension; ``gsum`` sums per-shard values ``[S, ...]``
     over all shards and hands the total back to every shard (the
-    reference's ``psum``)."""
+    reference's ``psum``; :meth:`Fabric.gsum`)."""
     n: int                       # global item count
     n_dev: int
     params: Mapping
     gsum: Callable
-
-
-def gsum(x: torch.Tensor) -> torch.Tensor:
-    return x.sum(0, keepdim=True).expand_as(x)
 
 
 @dataclass(frozen=True)
@@ -313,7 +320,9 @@ def dcra_scatter(dest, vals, n: int, fabric: Fabric, *,
     ``dest < 0`` is padding. Item ``i`` is owned by shard ``i % S`` at
     slot ``i // S``. Returns ``(y, dropped)``: ``y [n_local * S]`` float32
     on the fabric's device in the cyclic owner layout (shard-major), and
-    the 0-dim count of tasks dropped by a full queue.
+    the 0-dim count of tasks dropped by a full queue. On a distributed
+    fabric every process passes the whole stream, routes its own shards'
+    slices, and gets the global ``y`` and count.
 
     Sizing as in the reference: ``options.queues`` names the per-``task``
     IQ, ``options.cap`` is honoured exactly (flat path only),
@@ -338,17 +347,21 @@ def dcra_scatter(dest, vals, n: int, fabric: Fabric, *,
                               else queues.route_impl)
     key = ("scatter", op, n_local, n_dev, opts.axis, opts.pod_axis, pods,
            caps, impl, fabric.fabric_key(), e_total)
-    fn = _cached(key, lambda: _build_scatter_fn(pods, n_dev, n_local, caps,
-                                                op, impl))
-    dest_t = torch.as_tensor(dest).to(fabric.device, torch.int32)
-    vals_t = torch.as_tensor(vals).to(fabric.device, torch.float32)
-    return fn(dest_t.view(n_dev, e_local), vals_t.view(n_dev, e_local))
+    fn = _cached(key, lambda: _build_scatter_fn(fabric, pods, n_dev, n_local,
+                                                caps, op, impl))
+
+    def local(a, dtype):
+        return fabric.local_rows(torch.as_tensor(a).reshape(n_dev, e_local)
+                                 ).to(fabric.device, dtype)
+    return fn(local(dest, torch.int32), local(vals, torch.float32))
 
 
-def _build_scatter_fn(pods, n_dev, n_local, caps, op, impl):
+def _build_scatter_fn(fab, pods, n_dev, n_local, caps, op, impl):
     """One scatter round for one shape class: bucket by owner, exchange,
-    fold at the owner by ``op``; returns ``(y flat, dropped)``."""
+    fold at the owner by ``op``; returns ``(y flat, dropped)``, global on
+    every process of a distributed fabric."""
     CACHE_STATS["kernel_traces"] += 1
+    xchg = fab.exchange
 
     def run(dest, vals):
         valid = dest >= 0                          # padding -> no task
@@ -356,13 +369,18 @@ def _build_scatter_fn(pods, n_dev, n_local, caps, op, impl):
         slot, owner = dest_c // n_dev, dest_c % n_dev
         if pods is None:
             recv_slot, recv_val, n_drop = owner_route(
-                vals, slot, owner, valid, n_dev, caps[0], impl=impl)
+                vals, slot, owner, valid, n_dev, caps[0], impl=impl,
+                exchange=xchg)
         else:
             recv_slot, recv_val, n_drop = owner_route_hier(
                 vals, slot, owner, valid, pods[0], pods[1], caps[0], caps[1],
-                impl=impl)
+                impl=impl, exchange=xchg)
         y = reduce_received(recv_slot, recv_val, n_local, op, impl=impl)
-        return y.reshape(-1), n_drop.sum()
+        dropped = n_drop.sum()
+        if xchg is not None:
+            y = fab.gather_shards(y)
+            dropped = xchg.all_reduce(dropped, "sum")
+        return y.reshape(-1), dropped
 
     return run
 
@@ -505,7 +523,9 @@ class ProgramLaunch:
     * :meth:`result` blocks, copies to the host and unpacks:
       ``(state_arrays, AppStats)``, bit-identical to :func:`run_program`.
       Idempotent; the device tensors and the staging are released on the
-      first call."""
+      first call. On a distributed fabric its first call gathers the
+      states from every process (a collective: every process calls it,
+      in the same order as its other launches')."""
 
     def __init__(self, fab: Fabric, outs, n: int, n_states: int,
                  staging=()):
@@ -536,10 +556,13 @@ class ProgramLaunch:
             stats = AppStats(
                 rounds=r, messages=msgs[:r].cpu().numpy().astype(np.int64),
                 drops=drops[:r].cpu().numpy().astype(np.int64))
-            n_dev = self._fab.n_devices
+            fab = self._fab
+            if fab.is_multiprocess:          # every process: global states
+                state = fab.gather_shards(torch.stack(state, 1).cpu()
+                                          ).unbind(1)
             states = tuple(np.asarray(from_owner_layout(
-                s.reshape(-1).cpu().numpy(), self._n, n_dev), np.float64)
-                for s in state)
+                s.reshape(-1).cpu().numpy(), self._n, fab.n_devices),
+                np.float64) for s in state)
             self._result = (states, stats)
             self._outs = self._staging = None
         return self._result
@@ -582,19 +605,20 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
     if donate_states:
         key = key + ("donate",)
     fn = _cached(key, lambda: _build_graph_fn(
-        prog, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
+        prog, fab, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
         round_mode, donate_states))
     if isinstance(dst, torch.Tensor):
         if dst.device != fab.device:
             raise ValueError(f"setup= lies on {dst.device}, the fabric on "
                              f"{fab.device}")
-        edges, pins = (src_slot, dst, w), ()
-    else:
-        edges, pins = _to_device((src_slot, dst, w), fab.device)
-        edges = [e.view(n_dev, E_max) for e in edges]
+        edges, pins = [fab.local_rows(e) for e in (src_slot, dst, w)], ()
+    else:        # only this process's rows reach its device
+        edges, pins = _to_device([fab.local_rows(np.reshape(e, (n_dev, E_max)))
+                                  for e in (src_slot, dst, w)], fab.device)
         edges[0] = edges[0].long()
-    states, spins = _to_device(packed, fab.device)
-    states = [s.view(n_dev, -1) for s in states]   # donation empties it
+    states, spins = _to_device([fab.local_rows(s.reshape(n_dev, n_local))
+                                for s in packed], fab.device)
+    states = list(states)                          # donation empties it
     outs = fn(*edges, states)
     return ProgramLaunch(fab, outs, n, len(packed), pins + spins)
 
@@ -624,7 +648,7 @@ class _HostFlags:
         return bool(self._host[i])
 
 
-def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
+def _build_graph_fn(prog, fab, pods, n_dev, n_local, n,  # noqa: PLR0917
                     caps, params, rounds, impl, round_mode="lockstep",
                     donate_states=False):
     """The round loop for one shape class. Two shapes, selected by
@@ -650,6 +674,13 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
       the receive-reduce folds into admission (:func:`local_route_reduce`,
       ``fold_local``): no wire at all, the same gated loop.
 
+    On a distributed fabric (``fab``) the tensors hold this process's
+    shards; the exchanges cross processes, ``frontier.any()`` becomes
+    :meth:`Fabric.global_any` (still one blocking host read a round), the
+    pipelined loop's flag is the exchanged global count as on one
+    process, and the per-round counts are summed across processes once,
+    after the loop. ``fold_local`` needs one shard, so it never applies.
+
     A fixed-mode program runs the lockstep loop in either mode: it reads
     nothing on the host, so on one stream "produce at the tail of k-1,
     consume at the head of k" enqueues lockstep's operations in
@@ -664,7 +695,8 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
     allocator hands their memory to later rounds. Either way no state is
     copied, and the launch holds one state fewer at its peak."""
     CACHE_STATS["kernel_traces"] += 1
-    ctx = Ctx(n=n, n_dev=n_dev, params=params, gsum=gsum)
+    ctx = Ctx(n=n, n_dev=n_dev, params=params, gsum=fab.gsum)
+    xchg = fab.exchange
     fold_local = (round_mode == "pipelined" and pods is None
                   and n_dev == 1 and prog.reduce_op in ("min", "store"))
     pipelined = round_mode == "pipelined" and not fold_local
@@ -694,11 +726,12 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
             else:
                 if pods is None:
                     recv_slot, recv_val, nd = owner_route(
-                        vals, slot, owner, active, n_dev, caps[0], impl=impl)
+                        vals, slot, owner, active, n_dev, caps[0], impl=impl,
+                        exchange=xchg)
                 else:
                     recv_slot, recv_val, nd = owner_route_hier(
                         vals, slot, owner, active, pods[0], pods[1], caps[0],
-                        caps[1], impl=impl)
+                        caps[1], impl=impl, exchange=xchg)
                 upd = reduce_received(recv_slot, recv_val, n_local,
                                       prog.reduce_op, impl=impl)
             state2, frontier2 = prog.update(ctx, state, frontier, upd)
@@ -715,11 +748,11 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
             if pods is None:
                 recv, meta, nd, gcnt = owner_route_start(
                     vals, slot, owner, active, n_dev, caps[0], fcnt,
-                    impl=impl)
+                    impl=impl, exchange=xchg)
             else:
                 recv, meta, nd, gcnt = owner_route_hier_start(
                     vals, slot, owner, active, pods[0], pods[1], caps[0],
-                    caps[1], fcnt, impl=impl)
+                    caps[1], fcnt, impl=impl, exchange=xchg)
             return recv, meta, m, nd, gcnt
 
         def consume(recv, meta):
@@ -728,8 +761,9 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
             return reduce_received(recv_slot, recv_val, n_local,
                                    prog.reduce_op, impl=impl)
 
-        msgs = torch.zeros(rounds, n_dev, dtype=torch.int32, device=dev)
-        drops = torch.zeros(rounds, n_dev, dtype=torch.int32, device=dev)
+        n_rows = dst.shape[0]                      # this process's shards
+        msgs = torch.zeros(rounds, n_rows, dtype=torch.int32, device=dev)
+        drops = torch.zeros(rounds, n_rows, dtype=torch.int32, device=dev)
         state = tuple(state_in)
         frontier = prog.frontier0(ctx, state)
         r = 0
@@ -741,7 +775,7 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
                 r += 1
                 if prog.mode == "while":
                     HOST_READS["reads"] += 1
-                    if not bool(frontier.any()):
+                    if not fab.global_any(frontier):
                         break
         else:                                      # pipelined, while
             flags = _HostFlags(rounds, dev)
@@ -776,8 +810,11 @@ def _build_graph_fn(prog, pods, n_dev, n_local, n,  # noqa: PLR0917
                 flags.post(i, live)
                 if i >= 1 and not flags.read(i - 1):
                     break                  # iteration i was the unreal one
-        return (*state, r, msgs.sum(1, dtype=torch.int32),
-                drops.sum(1, dtype=torch.int32))
+        msum = msgs.sum(1, dtype=torch.int32)
+        dsum = drops.sum(1, dtype=torch.int32)
+        if xchg is not None:                       # once, after the loop
+            msum, dsum = xchg.all_reduce(torch.stack([msum, dsum]), "sum")
+        return (*state, r, msum, dsum)
 
     return run
 
@@ -886,7 +923,8 @@ def program_rounds(prog: TaskProgram, g, n_dev, caps,  # noqa: PLR0917
     w_t = torch.from_numpy(np.asarray(w, np.float32).reshape(n_dev, E_max))
     evalid_t = torch.from_numpy(evalid).view(n_dev, E_max)
 
-    ctx = Ctx(n=n, n_dev=n_dev, params=kparams, gsum=gsum)
+    ctx = Ctx(n=n, n_dev=n_dev, params=kparams,
+              gsum=Fabric.fake(n_dev, device="cpu").gsum)
     states0, fills = prog.init(g, params)
     state = tuple(torch.from_numpy(np.asarray(
         owner_layout(s, n_dev, f)[0], np.float32)).view(n_dev, n_local)
