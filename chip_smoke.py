@@ -6,6 +6,7 @@
     python3 chip_smoke.py --rank-grid [SRC]    # the rank kernel's grid only
     python3 chip_smoke.py --dse                # phase 14 alone (after 2)
     python3 chip_smoke.py --scale-out          # phase 15 alone (after 2)
+    python3 chip_smoke.py --lm                 # phase 16 alone (after the build)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -143,9 +144,28 @@ script exits non-zero with no result line:
    bytes out and host seconds of the staged exchange a round (wait,
    device-to-host, gloo, host-to-device), each worker's peak card
    memory. A worker that fails, or a peer that times out, fails the
-   phase.
+   phase;
+16. the decoder LMs' serving path (``repro_torch.models``,
+   ``launch/serve.py``): granite-8b at its published width (36 layers,
+   d_model 4096, 32/8 heads, hd 128, d_ff 14336, vocab 49152; 33.0 GB of
+   float32 weights from ``torch.Generator`` seed 1 on the card) on
+   ``synth_batch`` tokens at train_4k cut to [2, 4096]: one forward in
+   float32 and one in bf16 with every attention layer on the flash
+   kernel (36 launches a forward, ``blocked`` / ``wgmma`` from ``PATHS``),
+   each against the same forward on the torch path (``kernel=False``)
+   within ``logit_bound``, and the kernel at each forward's own shape
+   (layer 0's q, k, v after the GQA expansion, [64, 4096, 128]) against
+   its plain version within ``error_bound``; ``serve`` of 4 prompts x
+   128 tokens, 32 generated, float32 cache (tokens/s, ms a decode step,
+   the decode's logits at the last prompt position against the
+   forward's); then OLMoE-1B-7B at its width (16 layers, 27.7 GB) with a
+   ``MeshInfo`` over phase 10's fused packaging, every MoE layer through
+   ``moe_dcra`` (no drop), on [2, 2048] against the same weights with
+   the einsum MoE, routing differences only at near ties, and the kernel
+   at layer 0's [32, 2048, 128] against its plain version. Forward ms
+   (warm, no instrumentation patched in), peak bytes.
 
-Each path of phases 4-7, 9-15 runs with every kernel's launch count set
+Each path of phases 4-7, 9-16 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -3372,6 +3392,413 @@ def run_scale_out(device, totals, g22=None, setup22=None):
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the decoder LMs' serving path
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "granite-8b"
+LM_TOKENS = (2, 4096)              # TRAIN_4K cut to batch 2
+LM_SERVE = (4, 128, 32)            # prompts, prompt length, generated
+LM_MOE_TOKENS = (2, 2048)          # OLMoE: TRAIN_4K cut to batch 2, seq 2048
+#: OLMoE's dispatch queues in phase 16: the dispatch bucket at factor 8
+#: holds every task a shard sends and the expert bucket at 1.0 of its
+#: (already padded) input every task a data slice can send one expert, so
+#: nothing can drop; factor 8 on both would size the expert bucket at
+#: 16,384 rows, about 60 GB of expert-FFN operands beside 27.7 GB of
+#: weights
+LM_MOE_QUEUES = {"dispatch": 8.0, "portal": 1.0, "expert": 1.0}
+
+
+def logit_bound(cfg, dtype, seq_len):
+    """How far two runs of one model may lie apart, as a share of
+    max|logit|, where they differ only in the order of their sums (the
+    flash kernel's online softmax against the direct softmax, GEMMs of
+    other shapes). In float32 each layer's longest dot product (n terms:
+    d_ff or the expert's width, d_model, the keys) perturbs the residual
+    stream by about sqrt(n) unit roundoffs, once in each run, and the L
+    layers add: ``2 L sqrt(n) 2^-24``. In bf16 the logits are rounded to
+    bf16, so two values one ulp apart differ by up to 2^-7 of their size,
+    and the two runs round the stream at other points, about two ulps a
+    layer that add as a random walk: ``2^-7 (1 + 2 sqrt(L))`` (a narrow
+    36-layer granite on the CPU: 0.022 against 0.10)."""
+    import math
+    import torch
+    L = cfg.num_layers
+    if dtype == torch.bfloat16:
+        return 2.0 ** -7 * (1 + 2 * math.sqrt(L))
+    ff = cfg.moe.d_expert if cfg.moe is not None else cfg.d_ff
+    n = max(ff, cfg.d_model, cfg.num_heads * cfg.resolved_head_dim, seq_len)
+    return 2 * L * math.sqrt(n) * U
+
+
+def lm_batch(cfg, tokens):
+    """``synth_batch`` at ``TRAIN_4K`` cut to ``tokens`` (batch, seq)."""
+    import dataclasses
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.data.pipeline import synth_batch
+    shape = dataclasses.replace(TRAIN_4K, global_batch=tokens[0],
+                                seq_len=tokens[1])
+    return synth_batch(cfg, shape, 0, seed=SEED)
+
+
+def timed_forward(model, batch, reps=1, **kw):
+    """``model.forward(batch)`` ``reps + 1`` times, the first to warm:
+    (logits, ms of the last run on the host clock around synchronised
+    calls, peak bytes of the runs)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps + 1):
+        logits = None      # free the last run's logits before the next
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(batch, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return logits, ms, torch.cuda.max_memory_allocated()
+
+
+def logits_held(tag, got, want, bound):
+    """max |got - want| against ``bound`` of max|want|, both finite:
+    (err, share)."""
+    import torch
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if not (err <= bound * scale and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{tag}: max |dlogit| {err} above {bound:.3e} "
+                             f"of max|logit| {scale} (or not finite)")
+    return err, err / scale
+
+
+class FirstFlashInputs:
+    """Within: keeps copies of the first ``ops.flash_attention`` call's
+    q, k, v as [B*H, S, hd], and its ``causal`` (layer 0's attention,
+    after the glue's GQA expansion: the kernel's input on the main path)
+    in ``self.seen``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real, self.seen = ops, ops.flash_attention, None
+
+        def keep(q, k, v, causal=True):
+            if self.seen is None:
+                self.seen = tuple(t.reshape(-1, *t.shape[2:]).clone()
+                                  for t in (q, k, v)) + (causal,)
+            return self.real(q, k, v, causal=causal)
+        ops.flash_attention = keep
+        return self
+
+    def __exit__(self, *_):
+        self.ops.flash_attention = self.real
+        return False
+
+
+def lm_flash_check(tag, seen, want_shape):
+    """The flash kernel on the q, k, v a model forward gave it (a
+    :class:`FirstFlashInputs`' ``seen``) against its plain version within
+    ``error_bound``, as phase 11 holds it (:func:`flash_check`)."""
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v, causal = seen
+    if tuple(q.shape) != want_shape:
+        raise AssertionError(f"{tag}: the kernel got {tuple(q.shape)}, "
+                             f"want {want_shape}")
+    err, ratio, share = flash_check(flash, q, k, v, causal)
+    log(f"lm {tag}: flash_attention at layer 0's q, k, v "
+        f"{tuple(q.shape)} {q.dtype} causal={causal} (design "
+        f"{flash.launch_plan(*q.shape, q.dtype).path}): max |err| "
+        f"{err:.3e} vs the plain version, {ratio:.4f} of error_bound"
+        + (f"; mean |err| {share:.4f} of the p-unrounded plain version's"
+           if share is not None else "") + f" [{SMI}]")
+
+
+def lm_forwards(tag, model, batch, dtype, design, totals):
+    """One forward on the kernel path (a main path: one flash launch a
+    layer on ``design``; layer 0's kernel inputs kept and the kernel held
+    to its plain version on them), then the same forward with every
+    attention layer on the torch path (``kernel=False``): the logits
+    within :func:`logit_bound`, each forward's ms and peak bytes (warm,
+    the kernel path's first logits held). Returns those logits."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    cfg = model.cfg
+    L = cfg.num_layers
+    with MainPath(f"{tag} forward", ("flash_attention",), totals) as path:
+        with FirstFlashInputs() as first:
+            got, ms, _ = timed_forward(model, batch, reps=0)
+    on_design = flash.PATHS[design]
+    if path.launches["flash_attention"] != L or on_design != L:
+        raise AssertionError(f"{tag}: flash launches {path.launches}, "
+                             f"designs {flash.PATHS}; want {L} on {design}")
+    B, S = got.shape[:2]
+    lm_flash_check(tag, first.seen, (B * cfg.num_heads, S,
+                                     cfg.resolved_head_dim))
+    del first.seen
+    _, ms_warm, peak = timed_forward(model, batch)
+    want, ms_plain, peak_plain = timed_forward(model, batch, kernel=False)
+    bound = logit_bound(cfg, dtype, batch["tokens"].shape[1])
+    err, share = logits_held(f"{tag} kernel vs torch path", got, want, bound)
+    log(f"lm {tag}: logits {tuple(got.shape)} {got.dtype}; flash launches "
+        f"{path.launches['flash_attention']} (design {design}: "
+        f"{on_design}); forward {ms:.2f} ms first, {ms_warm:.2f} "
+        f"ms warm ({B * S / ms_warm * 1e3:.4e} tokens/s), peak "
+        f"{peak} B; the torch path (_direct_attend) {ms_plain:.2f} ms warm, "
+        f"peak {peak_plain} B; max |dlogit| {err:.4e} = {share:.4e} of "
+        f"max|logit| (bound {bound:.4e}) [{SMI}]")
+    del want
+    return got
+
+
+def lm_serve(model, totals, device):
+    """``launch/serve.py::serve`` on the model: ``LM_SERVE`` prompts from
+    ``torch.Generator`` seed ``SEED``, a float32 cache; tokens/s, ms a
+    decode step (each step synchronised), peak bytes; the teacher-forced
+    decode's logits at the last prompt position held to the kernel-path
+    forward's there within :func:`logit_bound`. Decode attends by the
+    torch path (no kernel launch)."""
+    import torch
+    from repro_torch.launch.serve import serve
+    cfg = model.cfg
+    B, P, G = LM_SERVE
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=device, dtype=torch.int32)
+    steps, at = [], {}
+    decode = model.decode_step
+
+    def timed_step(cache, tokens, pos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(cache, tokens, pos)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        if pos == P - 1:
+            at["logits"] = out[0][:, -1].clone()
+        return out
+    model.decode_step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with MainPath(f"serve {LM_ARCH}", (), totals) as path:
+            t0 = time.perf_counter()
+            ids = serve(cfg, model, prompts, G)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        del model.decode_step
+    if any(path.launches.values()):
+        raise AssertionError(f"serve: decode launched kernels "
+                             f"{path.launches}")
+    if tuple(ids.shape) != (B, G) or not bool(
+            ((ids >= 0) & (ids < model.embed.shape[0])).all()):
+        raise AssertionError(f"serve: ids {tuple(ids.shape)} out of range")
+    with torch.inference_mode():
+        want, _ = model.forward({"tokens": prompts})
+    bound = logit_bound(cfg, torch.float32, P)
+    err, share = logits_held("serve decode vs forward", at["logits"],
+                             want[:, P - 1], bound)
+    log(f"lm serve {LM_ARCH}: {B} prompts x {P} tokens, {G} generated, "
+        f"float32 cache: {B * G / wall:.4e} tokens/s ({wall:.3f} s, "
+        f"prefill by {P - 1} teacher-forced steps); ms a decode step mean "
+        f"{sum(steps) / len(steps):.3f}, max {max(steps):.3f}, mean after "
+        f"the first {sum(steps[1:]) / (len(steps) - 1):.3f} over "
+        f"{len(steps)} steps; peak {peak} B; decode logits at position "
+        f"{P - 1} vs the kernel-path forward: max |dlogit| {err:.4e} = "
+        f"{share:.4e} of max|logit| (bound {bound:.4e}); launches "
+        f"{path.launches} [{SMI}]")
+
+
+def moe_routing(params, x, cfg):
+    """The routing ``moe_einsum`` computes for x [B, S, D] (its token
+    groups, so the same bits): (probs [B, S, E], the top-k expert ids of
+    each token sorted [B, S, K], the gap between its k-th and (k+1)-th
+    probability [B, S])."""
+    from repro_torch.models.moe import GROUP_SIZE, router_probs, topk
+    B, S, D = x.shape
+    g = min(GROUP_SIZE, B * S)
+    probs, _ = router_probs(params, x.reshape(B * S // g, g, D), cfg.moe)
+    K = cfg.moe.top_k
+    vals, ids = topk(probs, K + 1)
+    return (probs.reshape(B, S, -1), ids[..., :K].sort(-1).values.reshape(
+        B, S, K), (vals[..., K - 1] - vals[..., K]).reshape(B, S))
+
+
+def routing_differences(dcra_runs, einsum_runs):
+    """Per layer, the tokens the two runs sent to other experts. Each must
+    sit at a near tie: the einsum run's gap between its k-th and (k+1)-th
+    probability at most ``2 max|dp| + 2^-20``, dp the two runs'
+    probabilities at that layer (from their own inputs, by the einsum's
+    function). Returns ([differences a layer], the first position of each
+    sequence at or after which some layer routed differently)."""
+    import torch
+    counts, first = [], None
+    for layer, ((ids_d, probs_d), (probs_e, ids_e, gap_e)) in enumerate(
+            zip(dcra_runs, einsum_runs)):
+        diff = (ids_d != ids_e).any(-1)                      # [B, S]
+        tau = 2 * float((probs_d - probs_e).abs().max()) + 2.0 ** -20
+        if bool((gap_e[diff] > tau).any()):
+            raise AssertionError(
+                f"layer {layer}: {int(diff.sum())} tokens routed apart, "
+                f"gaps {gap_e[diff][:8].tolist()} above the runs' noise "
+                f"{tau:.3e}")
+        counts.append(int(diff.sum()))
+        S = diff.shape[1]
+        pos = torch.where(diff, torch.arange(S, device=diff.device), S)
+        at = pos.amin(1)
+        first = at if first is None else torch.minimum(first, at)
+    return counts, first
+
+
+def lm_olmoe(device, totals):
+    """OLMoE-1B-7B at full width: a ``MeshInfo`` over phase 10's fused
+    packaging (data 2, expert 8, tp 1), so every MoE layer runs
+    ``moe_dcra`` (a wrapper gives it :data:`LM_MOE_QUEUES` and asks it for
+    its stats: drops, top-k ids), against the same weights with no
+    ``MeshInfo`` (``moe_einsum`` at factor 8: each expert holds its whole
+    group; a wrapper keeps its routing). The forwards are timed after,
+    with neither wrapper in place (the dispatch given only its queues).
+    Routing is a top-k: where the two runs' inputs (1e-6 apart: other
+    sums, ``index_add_``'s order) meet a near tie, a token may take
+    another expert and, through attention, move the later positions of
+    its sequence. So every routing difference must sit at a near tie
+    (:func:`routing_differences`), and the logits are held to
+    :func:`logit_bound` at every position before its sequence's first
+    difference."""
+    import dataclasses
+    import functools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.core.dispatch import MeshInfo
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.queues import QueueConfig
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    label, shape, names, kw = MOE_PACKAGINGS[0]
+    info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    model = build_model(cfg, mesh_info=info).init(gen)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm {MOE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}; weights "
+        f"{n_bytes} B float32 from torch.Generator seed {SEED} on the card "
+        f"in {time.perf_counter() - t0:.2f} s; MeshInfo {label}, queues "
+        f"{LM_MOE_QUEUES}")
+    einsum = build_model(cfg, device=device)
+    einsum.load(model.tree())
+    batch = lm_batch(cfg, LM_MOE_TOKENS)
+    B, S = LM_MOE_TOKENS
+    K, n_sh = cfg.moe.top_k, info.mesh.n_devices
+    # the fused packaging's x spec: batch over data, seq over the group
+    x_spec = ("data", ("expert", "tp"), None)
+    drops, dcra_runs, einsum_runs = [], [], []
+    dcra, moe_einsum = dispatch.moe_dcra, moe.moe_einsum
+    queues = QueueConfig(default_iq=None, iq_factors=LM_MOE_QUEUES)
+    sized = functools.partial(dcra, queues=queues)
+
+    def dcra_counted(params, x, c, i):
+        out, aux, stats = dcra(params, x, c, i, return_stats=True,
+                               queues=queues)
+        drops.append(int(stats.total_dropped))
+        ids = info.mesh.unshard(stats.topk_ids.reshape(
+            n_sh, B // 2, S // 8, K), x_spec)
+        dcra_runs.append((ids.sort(-1).values, moe_routing(params, x, c)[0]))
+        return out, aux
+
+    def einsum_seen(params, x, c):
+        einsum_runs.append(moe_routing(params, x, c))
+        return moe_einsum(params, x, c)
+    dispatch.moe_dcra, moe.moe_einsum = dcra_counted, einsum_seen
+    try:
+        with torch.inference_mode():
+            with MainPath(f"{MOE_ARCH} forward (moe_dcra)",
+                          ("flash_attention", "bucket_scatter"), totals,
+                          STAGED) as path:
+                with FirstFlashInputs() as first_in:
+                    got, _ = model.forward(batch)
+            want, _ = einsum.forward(batch)
+    finally:
+        dispatch.moe_dcra, moe.moe_einsum = dcra, moe_einsum
+    counts, first = routing_differences(dcra_runs, einsum_runs)
+    L = cfg.num_layers
+    if (path.launches["flash_attention"] != L or drops[:L] != [0] * L):
+        raise AssertionError(f"{MOE_ARCH}: launches {path.launches}, drops "
+                             f"a layer {drops[:L]}")
+    keep = torch.arange(S, device=device)[None] < first[:, None]
+    bound = logit_bound(cfg, torch.float32, S)
+    err, share = logits_held(f"{MOE_ARCH} moe_dcra vs moe_einsum",
+                             got[keep], want[keep], bound)
+    whole = float((got - want).abs().max())
+    lm_flash_check(MOE_ARCH, first_in.seen,
+                   (B * cfg.num_heads, S, cfg.resolved_head_dim))
+    del got, want, first_in.seen, dcra_runs[:], einsum_runs[:]
+    # timed with nothing patched in but the dispatch's queue sizing
+    dispatch.moe_dcra = sized
+    try:
+        with torch.inference_mode():
+            _, ms, peak = timed_forward(model, batch)
+    finally:
+        dispatch.moe_dcra = dcra
+    with torch.inference_mode():
+        _, ms_e, peak_e = timed_forward(einsum, batch)
+    log(f"lm {MOE_ARCH} x {LM_MOE_TOKENS}: flash launches "
+        f"{path.launches['flash_attention']}, bucket_scatter "
+        f"{path.launches['bucket_scatter']}, drops {sum(drops[:L])} over {L} "
+        f"layers; forward {ms:.2f} ms warm ({B * S / ms * 1e3:.4e} "
+        f"tokens/s), peak {peak} B; einsum MoE {ms_e:.2f} ms warm, peak "
+        f"{peak_e} B; tokens routed apart (all at near ties) a layer "
+        f"{counts}; at the {int(keep.sum())} of {B * S} positions before "
+        f"their sequence's first: max |dlogit| {err:.4e} = {share:.4e} of "
+        f"max|logit| (bound {bound:.4e}); at all positions {whole:.4e} "
+        f"[{SMI}]")
+
+
+def run_lm(device, totals):
+    """Phase 16: granite-8b at full width, random float32 weights from
+    ``torch.Generator`` seed ``SEED`` on the card; forwards of tokens
+    ``LM_TOKENS`` in float32 and bf16 on the kernel path against the
+    torch path; ``serve``; then OLMoE-1B-7B through ``moe_dcra``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    model = build_model(cfg, device=device).init(gen)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm {LM_ARCH} (arXiv:2405.04324): {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"weights {n_bytes} B float32 ({cfg.param_count()} parameters) from "
+        f"torch.Generator seed {SEED} on the card in "
+        f"{time.perf_counter() - t0:.2f} s; tokens synth_batch at train_4k "
+        f"cut to batch {LM_TOKENS[0]} (from 256), seq {LM_TOKENS[1]}")
+    batch = lm_batch(cfg, LM_TOKENS)
+    with torch.inference_mode():
+        lm_forwards(f"{LM_ARCH} float32", model, batch, torch.float32,
+                    "blocked", totals)
+        bf16 = build_model(cfg, dtype=torch.bfloat16, device=device)
+        bf16.load(model.tree())
+        lm_forwards(f"{LM_ARCH} bf16", bf16, batch, torch.bfloat16, "wgmma",
+                    totals)
+        del bf16
+    torch.cuda.empty_cache()
+    lm_serve(model, totals, device)
+    del model
+    torch.cuda.empty_cache()
+    lm_olmoe(device, totals)
+    torch.cuda.empty_cache()
+
+
 def scale_out_only():
     """``--scale-out``: the build, RMAT-22 and its packing (phase 2) and
     phase 15 alone; its launch counts are printed, no kernel table."""
@@ -3392,6 +3819,25 @@ def scale_out_only():
     totals = {k: 0 for k in SOURCES}
     run_scale_out(torch.device(*CARD), totals, g, setup)
     phase("15 (scale-out, two processes)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
+def lm_only():
+    """``--lm``: the build and phase 16 alone; its launch counts are
+    printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_lm(torch.device(*CARD), totals)
+    phase("16 (LM serving)", t0)
     log(f"launches {totals}")
     return 0
 
@@ -3499,6 +3945,8 @@ def main() -> int:
         return dse_only()
     if sys.argv[1:2] == ["--scale-out"]:
         return scale_out_only()
+    if sys.argv[1:2] == ["--lm"]:
+        return lm_only()
     if sys.argv[1:2] == ["--scale-out-worker"]:
         return scale_out_worker(*sys.argv[2:5])
     sys.path.insert(0, str(ROOT / "src"))
@@ -3622,6 +4070,11 @@ def main() -> int:
     run_scale_out(device, totals, g, setup)
     del g, setup
     t0 = phase("15 (scale-out, two processes)", t0)
+
+    # ---- 16: the decoder LMs' serving path ---------------------------------
+    torch.cuda.empty_cache()
+    run_lm(device, totals)
+    t0 = phase("16 (LM serving)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

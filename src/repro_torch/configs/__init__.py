@@ -1,14 +1,15 @@
 """Architecture registry (counterpart of ``repro/configs/__init__.py``):
 ``get_config("<arch-id>")`` for the ids the reference knows. Only the
 architectures whose modules the port has are resolved; the others raise
-``KeyError`` until the LM slice ports them (``ROADMAP.md`` queue 1,
-item 11)."""
+``KeyError`` until their slice ports them (``ROADMAP.md`` queue 1,
+item 5b: the recurrent, hybrid and encoder-decoder models)."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from .base import ArchConfig, MoEConfig, SSMConfig
+from .base import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES,
+                   TRAIN_4K, ArchConfig, MoEConfig, ShapeConfig, SSMConfig)
 
 # arch-id -> module name (the reference's table)
 _ARCH_MODULES: Dict[str, str] = {
@@ -23,8 +24,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "rwkv6-7b": "rwkv6_7b",
     "zamba2-7b": "zamba2_7b",
 }
-#: the arch ids whose config modules are ported
-PORTED = ("olmoe-1b-7b",)
+#: the arch ids whose config modules are ported: the decoder LMs (item 5a)
+PORTED = ("mixtral-8x22b", "olmoe-1b-7b", "granite-8b", "h2o-danube-3-4b",
+          "internlm2-1.8b", "qwen2-1.5b", "qwen2-vl-7b")
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
@@ -34,10 +36,13 @@ def get_config(arch: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
     if arch not in PORTED:
         raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md queue 1, "
-                       f"item 11); ported: {list(PORTED)}")
+                       f"item 5b); ported: {list(PORTED)}")
     mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)
     return mod.CONFIG
 
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ARCH_IDS", "PORTED",
-           "get_config"]
+__all__ = [
+    "ArchConfig", "MoEConfig", "SSMConfig", "ShapeConfig",
+    "ALL_SHAPES", "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+    "LONG_500K", "ARCH_IDS", "PORTED", "get_config",
+]

@@ -1,4 +1,5 @@
-"""Architecture configuration (counterpart of ``repro/configs/base.py``:
+"""Architecture and shape configuration (counterpart of
+``repro/configs/base.py``: ``ShapeConfig`` and the shape cells :23-44,
 ``MoEConfig`` :52, ``SSMConfig`` :64, ``ArchConfig`` :74).
 
 A copy, not an import: the port imports nothing of ``repro``. Every
@@ -10,7 +11,29 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -66,6 +89,15 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the long_500k decode cell?"""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks)."""
@@ -152,3 +184,11 @@ class ArchConfig:
             scan_layers=False,
             **kw,
         )
+
+    def shape_cells(self) -> Tuple[ShapeConfig, ...]:
+        """The shape cells this arch runs: long_500k only where attention
+        is sub-quadratic."""
+        cells = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+        if self.sub_quadratic:
+            cells.append(LONG_500K)
+        return tuple(cells)

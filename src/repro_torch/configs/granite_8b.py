@@ -1,0 +1,17 @@
+"""Granite-8B (code) — 36L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=49152, llama-arch. [arXiv:2405.04324; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=49152,
+    rope_theta=10_000_000.0,
+    source="arXiv:2405.04324",
+)

@@ -81,8 +81,8 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_arch_ids_raise():
-    with pytest.raises(KeyError, match="queue 1, item 11"):
-        get_config("mixtral-8x22b")
+    with pytest.raises(KeyError, match="queue 1, item 5b"):
+        get_config("rwkv6-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
