@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dse                # phase 14 alone (after 2)
     python3 chip_smoke.py --scale-out          # phase 15 alone (after 2)
     python3 chip_smoke.py --lm                 # phase 16 alone (after the build)
+    python3 chip_smoke.py --train              # phase 17 alone (after the build)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -163,9 +164,29 @@ script exits non-zero with no result line:
    ``moe_dcra`` (no drop), on [2, 2048] against the same weights with
    the einsum MoE, routing differences only at near ties, and the kernel
    at layer 0's [32, 2048, 128] against its plain version. Forward ms
-   (warm, no instrumentation patched in), peak bytes.
+   (warm, no instrumentation patched in), peak bytes;
+17. the decoder LMs' training path (``optim/adamw.py``,
+   ``launch/steps.py``, ``launch/train.py``, ``checkpoint/``,
+   ``runtime/fault_tolerance.py::run_training``): (a) OLMoE-1B-7B at its
+   published width with its depth cut from 16 to 4 layers (1.88e9
+   float32 parameters; with gradients and AdamW's two moments about 30
+   GB), remat ``block``, every MoE layer through ``moe_dcra`` on phase
+   10's fused packaging at the config's factor 1.25, 3 AdamW steps
+   (``make_train_step``, ``default_optimizer()``) on ``synth_batch``
+   tokens at train_4k cut to [2, 4096]: step 1 against the same step on
+   the plain sort route from the same weights and batch (loss, every
+   gradient leaf, the parameters after it; top-k routing layer by
+   layer, a difference only at a near tie), the scatter ``staged``
+   and launched 2 x 2 times a layer a step (forward, remat's
+   recompute), no flash launch (training takes the torch attention
+   path), drops a layer, ms a step, tokens/s and peak bytes of steps
+   2-3; (b) ``launch/train.py``'s ``main`` on reduced granite-8b, 20
+   steps at peak 3e-3, warmup 5: the loss below 0.7 of its first; (c)
+   ``run_training`` of the same trainer with a failure at step 7 and a
+   checkpoint every 5 steps: one restart, final step 20, the losses of
+   the run without the failure.
 
-Each path of phases 4-7, 9-16 runs with every kernel's launch count set
+Each path of phases 4-7, 9-17 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -184,6 +205,7 @@ exits with code 2.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -3799,6 +3821,351 @@ def run_lm(device, totals):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the decoder LMs' training path
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4                   # OLMoE-1B-7B cut from 16 layers
+TRAIN_TOKENS = (2, 4096)           # TRAIN_4K cut from batch 256
+TRAIN_STEPS = 3
+#: step 1 on the kernel path against the sort route: the loss within this
+#: share of itself, every gradient leaf within this share of its max|g|
+#: (the bounds the CPU tests hold the port to the reference by: the runs
+#: differ in the order of float32 sums, here ``index_add_``'s atomics in
+#: the combine and in ``gather_rows``' backward)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+#: (b) the CLI: reduced granite-8b at tests/test_system.py's peak and warmup
+TRAIN_CLI = ["--arch", "granite-8b", "--reduced", "--steps", "20",
+             "--lr", "3e-3", "--warmup", "5"]
+#: (c) the restart: a failure at step 7, a checkpoint every 5 steps; the
+#: replayed steps run the same ops on the same values, so the losses must
+#: equal the uninterrupted run's within RESTART_REL, relative (equal on
+#: the H100; on the CPU two uninterrupted runs of these 20 steps differ
+#: by up to 1.3e-7, their sums not repeatable bit for bit)
+RESTART_AT, RESTART_EVERY, RESTART_REL = 7, 5, 1e-6
+
+
+class KeepGrads:
+    """An optimiser that hands every call to ``opt`` and keeps host
+    copies of the gradients of its first call (``self.grads``)."""
+
+    def __init__(self, opt):
+        self.opt, self.grads, self.calls = opt, None, 0
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        if not self.calls:
+            self.grads = host_copy(grads)
+        self.calls += 1
+        return self.opt.update(grads, state, params)
+
+
+class RoutingSpy:
+    """Within: every ``moe_dcra`` call runs with ``queues`` (``None``: the
+    config's) and returns its stats to this spy; the first ``n`` calls (a
+    forward's layers: remat's recompute follows) keep their drops, and
+    their top-k ids [B, S, K] sorted with the router probabilities and
+    top-k gaps :func:`moe_routing` gives on the call's own x."""
+
+    def __init__(self, info, tokens, n, queues=None):
+        self.info, self.tokens, self.n, self.queues = info, tokens, n, queues
+        self.drops, self.runs = [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import dispatch
+        self.dispatch, self.real = dispatch, dispatch.moe_dcra
+        B, S = self.tokens
+        n_sh = self.info.mesh.n_devices
+        x_spec = ("data", ("expert", "tp"), None)    # the fused packaging
+
+        def spy(params, x, cfg, info):
+            out, aux, stats = self.real(params, x, cfg, info,
+                                        queues=self.queues,
+                                        return_stats=True)
+            if len(self.runs) < self.n:
+                K = cfg.moe.top_k
+                with torch.no_grad():
+                    ids = info.mesh.unshard(stats.topk_ids.reshape(
+                        n_sh, B // 2, S // 8, K), x_spec).sort(-1).values
+                    probs, _, gap = moe_routing(params, x.detach(), cfg)
+                self.drops.append(int(stats.total_dropped))
+                self.runs.append((ids, probs, gap))
+            return out, aux
+        dispatch.moe_dcra = spy
+        return self
+
+    def __exit__(self, *_):
+        self.dispatch.moe_dcra = self.real
+        return False
+
+
+def host_copy(tree):
+    """A copy of each tensor of ``tree`` in host memory."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+
+def grads_held(got, want, device):
+    """Every gradient leaf of ``got`` within :data:`TRAIN_GRAD_REL` of its
+    max|g| of ``want``'s (host copies, compared on the card leaf by
+    leaf). Returns the largest share."""
+    worst = 0.0
+    for k, w in want.items():
+        w, g = w.to(device), got[k].to(device)
+        scale = float(w.abs().max())
+        share = float((g - w).abs().max()) / max(scale, 1e-30)
+        if not share <= TRAIN_GRAD_REL:
+            raise AssertionError(f"train step: gradient {k} {share:.3e} of "
+                                 f"max|g| {scale:.3e} from the sort route")
+        worst = max(worst, share)
+    return worst
+
+
+def params_held(params, want, p0, grads, lr1, eps, device):
+    """The parameters after AdamW's first step (update ``lr (g' / (|g'| +
+    eps) + wd p)``, g' the clipped gradient) against the sort route's: an
+    entry whose gradient is near 0 may take the other sign, so every
+    entry within ``2 lr`` plus 2 float32 ulps of |p|; where |g'| is at
+    least 1e-3 of the leaf's max and large enough that the runs' gradient
+    difference (at most ``TRAIN_GRAD_REL`` of the max) moves ``g' / (|g'|
+    + eps)`` by under 1e-3 (|g'|^2 >= 1e3 eps TRAIN_GRAD_REL max|g'|),
+    within 1e-3 of lr plus the ulps. Returns (largest difference, largest
+    over the firm entries, the firm share)."""
+    import torch
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.to(device)))
+                          for g in grads.values()))
+    scale = float(torch.clamp(1.0 / (norm + 1e-9), max=1.0))
+    worst = worst_firm = 0.0
+    firm_n = total = 0
+    for k, p in params.items():
+        w, q0 = want[k].to(device), p0[k].to(device)
+        g = grads[k].to(device) * scale
+        err = (p.detach() - w).abs()
+        ulp = 2.0 ** -22 * q0.abs()
+        gmax = float(g.abs().max())
+        floor = max(1e-3 * gmax, (1e3 * eps * TRAIN_GRAD_REL * gmax) ** 0.5)
+        firm = g.abs() >= floor
+        if not bool((err <= 2 * lr1 + ulp).all()) or not bool(
+                (err[firm] <= 1e-3 * lr1 + ulp[firm]).all()):
+            raise AssertionError(f"train step: parameter {k} {float(err.max())}"
+                                 f" from the sort route's (lr {lr1})")
+        worst = max(worst, float(err.max()))
+        if bool(firm.any()):
+            worst_firm = max(worst_firm, float(err[firm].max()))
+        firm_n += int(firm.sum())
+        total += firm.numel()
+    return worst, worst_firm, firm_n / total
+
+
+def train_olmoe(device, totals):
+    """(a) OLMoE-1B-7B at full width, depth cut to ``TRAIN_LAYERS``, remat
+    ``block``, ``moe_dcra`` on phase 10's fused packaging at the config's
+    queues: ``TRAIN_STEPS`` AdamW steps through ``make_train_step`` and
+    ``default_optimizer()`` on ``synth_batch`` tokens ``TRAIN_TOKENS``;
+    step 1 held to the same step on the plain sort route from the same
+    weights and batch (loss, every gradient leaf, the parameters after)
+    where the two runs route alike, every routing difference held to a
+    near tie; steps 2-3 timed with nothing patched in (the same state,
+    a train step over the plain optimiser)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import MeshInfo, dispatch_queues
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    from repro_torch.models.model_zoo import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TRAIN_LAYERS)
+    L, (B, S) = cfg.num_layers, TRAIN_TOKENS
+    label, shape, names, kw = MOE_PACKAGINGS[0]
+    info = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    model = build_model(cfg, mesh_info=info).init(gen)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in lm_batch(cfg, TRAIN_TOKENS).items()}
+    p0 = host_copy(model.paths())
+    n_params = sum(v.numel() for v in p0.values())
+    log(f"train {MOE_ARCH} (arXiv:2409.02060): {L} of 16 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_expert "
+        f"{cfg.moe.d_expert}, vocab {cfg.vocab_size}; {n_params} float32 "
+        f"parameters from torch.Generator seed {SEED} in "
+        f"{time.perf_counter() - t0:.2f} s (a host copy kept); remat "
+        f"{cfg.remat}; MeshInfo {label}, queues at factor "
+        f"{cfg.moe.capacity_factor}; tokens synth_batch train_4k cut to "
+        f"{TRAIN_TOKENS}")
+
+    # step 1 on the plain sort route, from the same weights and batch
+    sort_q = dataclasses.replace(dispatch_queues(cfg.moe), route_impl="sort")
+    opt = KeepGrads(default_optimizer())
+    step = make_train_step(model, opt)
+    t0 = time.perf_counter()
+    with RoutingSpy(info, TRAIN_TOKENS, L, sort_q) as spy_s:
+        _, state, metrics = step(model.paths(), opt.init(model.paths()),
+                                 batch)
+    loss_s = float(metrics["loss"])
+    ms_s = (time.perf_counter() - t0) * 1e3
+    g_s, p1_s = opt.grads, host_copy(model.paths())
+    del state, metrics
+    with torch.no_grad():
+        for k, p in model.paths().items():
+            p.copy_(p0[k])
+
+    # the kernel path: step 1 held, steps 2.. timed
+    opt = KeepGrads(default_optimizer())
+    step = make_train_step(model, opt)
+    params = model.paths()
+    state = opt.init(params)
+    t0 = time.perf_counter()
+    with MainPath(f"{MOE_ARCH} train step 1 (moe_dcra)", ("bucket_scatter",),
+                  totals, STAGED) as first:
+        with RoutingSpy(info, TRAIN_TOKENS, L) as spy_k:
+            params, state, metrics = step(params, state, batch)
+    losses = [float(metrics["loss"])]
+    ms_1 = (time.perf_counter() - t0) * 1e3
+    counts, first_diff = routing_differences(
+        [(ids, probs) for ids, probs, _ in spy_k.runs],
+        [(probs, ids, gap) for ids, probs, gap in spy_s.runs])
+    lr1 = float(opt.opt.lr(torch.tensor(1, dtype=torch.int32)))
+    held = "held"
+    if sum(counts) == 0:
+        d_loss = abs(losses[0] - loss_s)
+        if not d_loss <= TRAIN_LOSS_REL * abs(loss_s):
+            raise AssertionError(f"train step: loss {losses[0]} vs the sort "
+                                 f"route's {loss_s}")
+        g_share = grads_held(opt.grads, g_s, device)
+        p_err, p_firm, firm = params_held(params, p1_s, p0, g_s, lr1,
+                                          opt.opt.eps, device)
+    else:
+        # a near tie moved a token: the routing before it is held (by
+        # routing_differences); the step after it is reported
+        held = "reported, not held"
+        d_loss = abs(losses[0] - loss_s)
+        g_share = max(float((opt.grads[k] - w).abs().max())
+                      / max(float(w.abs().max()), 1e-30)
+                      for k, w in g_s.items())
+        p_err, p_firm, firm = (max(float((params[k].detach().cpu() - w)
+                                         .abs().max())
+                                   for k, w in p1_s.items()), float("nan"),
+                               float("nan"))
+    del g_s, p1_s, p0
+    opt.grads = None
+    step = make_train_step(model, opt.opt)    # steps 2..: the optimiser alone
+    first_launches = first.launches["bucket_scatter"]
+    if (first_launches != 4 * L or first.launches["flash_attention"]
+            or spy_k.drops != spy_s.drops):
+        raise AssertionError(f"train step 1: launches {first.launches} (want "
+                             f"{4 * L} scatter, 0 flash), drops "
+                             f"{spy_k.drops} vs the sort route's "
+                             f"{spy_s.drops}")
+    log(f"train {MOE_ARCH} step 1 vs the sort route ({held}): loss "
+        f"{losses[0]:.6f} vs {loss_s:.6f} (|d| {d_loss:.3e}, bound "
+        f"{TRAIN_LOSS_REL:.0e} of it); gradients within {g_share:.3e} of "
+        f"each leaf's max|g| (bound {TRAIN_GRAD_REL:.0e}); parameters after "
+        f"the step within {p_err:.3e} (bound 2 lr = {2 * lr1:.3e}), "
+        f"{p_firm:.3e} at the {firm:.4f} of entries with a firm gradient "
+        f"(bound 1e-3 lr); tokens routed apart (all at near ties) a layer "
+        f"{counts}; drops a layer {spy_k.drops} (capacity factor "
+        f"{cfg.moe.capacity_factor}); step 1 {ms_1:.1f} ms, sort route "
+        f"{ms_s:.1f} ms (both instrumented) [{SMI}]")
+
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with MainPath(f"{MOE_ARCH} train steps 2-{TRAIN_STEPS}",
+                  ("bucket_scatter",), totals, STAGED) as path:
+        for _ in range(TRAIN_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = path.launches["bucket_scatter"] / (TRAIN_STEPS - 1)
+    if (launches != 4 * L or path.launches["flash_attention"]
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"train steps: launches {path.launches}, "
+                             f"losses {losses}")
+    ms = sum(times) / len(times)
+    log(f"train {MOE_ARCH} x {TRAIN_TOKENS}: {TRAIN_STEPS} AdamW steps "
+        f"(default_optimizer, lr(1) {lr1:.3e}), losses "
+        f"{[round(v, 6) for v in losses]}; steps 2-{TRAIN_STEPS} "
+        f"{[round(t, 2) for t in times]} ms, mean {ms:.2f} ms a step "
+        f"({B * S / ms * 1e3:.4e} tokens/s), peak {peak} B; bucket_scatter "
+        f"{launches:.0f} launches a step ({L} layers x 2 buckets x 2: "
+        f"forward and remat's recompute), staged only; flash 0 [{SMI}]")
+    del model, params, state, metrics
+
+
+def train_cli(device, totals):
+    """(b) ``launch/train.py``'s ``main`` on the card: :data:`TRAIN_CLI`
+    (the loss must fall below 0.7 of its first); (c) the same trainer
+    under ``run_training`` with a failure at ``RESTART_AT`` and a
+    checkpoint every ``RESTART_EVERY`` steps: one restart, step 20, and
+    the uninterrupted run's losses."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault_tolerance import (FailurePlan,
+                                                     StragglerWatchdog,
+                                                     run_training)
+    argv = TRAIN_CLI + ["--device", str(device)]
+    out = io.StringIO()
+    with MainPath("train CLI", (), totals) as path:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = train.main(argv)
+        wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"train CLI | {line}")
+    losses = [m["loss"] for m in res.metrics_history]
+    if (res.final_step != 20 or len(losses) != 20 or any(path.launches.values())
+            or not all(map(math.isfinite, losses))
+            or not losses[-1] < 0.7 * losses[0]):
+        raise AssertionError(f"train CLI: step {res.final_step}, losses "
+                             f"{losses}, launches {path.launches}")
+    log(f"train CLI {' '.join(argv)}: {wall:.2f} s, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} ({losses[-1] / losses[0]:.4f} of the first, "
+        f"below 0.7) [{SMI}]")
+    step_fn, init_state, batch_fn = train.trainer(train.parser().parse_args(
+        argv))
+    plan = FailurePlan({RESTART_AT: "injected"})
+    with MainPath("train restart", (), totals) as path:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            again = run_training(step_fn, init_state, batch_fn, 20, ckpt_dir,
+                                 ckpt_every=RESTART_EVERY, failure_plan=plan,
+                                 watchdog=StragglerWatchdog())
+        wall = time.perf_counter() - t0
+    replayed = [m["loss"] for m in again.metrics_history]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(replayed, losses))
+    if (again.restarts != 1 or again.final_step != 20 or len(replayed) != 20
+            or plan.fired != [(RESTART_AT, "injected")]
+            or any(path.launches.values()) or not diff <= RESTART_REL):
+        raise AssertionError(f"train restart: {again.restarts} restarts, step "
+                             f"{again.final_step}, {len(replayed)} losses, "
+                             f"{diff} from the uninterrupted run's")
+    log(f"train restart: failure at step {RESTART_AT}, checkpoints every "
+        f"{RESTART_EVERY}: {again.restarts} restart, final step "
+        f"{again.final_step}, steps 5-6 replayed from step 4's checkpoint; "
+        f"losses within {diff:.3e} of the uninterrupted run's, relative "
+        f"(bound {RESTART_REL:.0e}); {wall:.2f} s [{SMI}]")
+
+
+def run_train(device, totals):
+    """Phase 17: (a) :func:`train_olmoe`, then (b) and (c)
+    :func:`train_cli`."""
+    import torch
+    train_olmoe(device, totals)
+    torch.cuda.empty_cache()
+    train_cli(device, totals)
+    torch.cuda.empty_cache()
+
+
 def scale_out_only():
     """``--scale-out``: the build, RMAT-22 and its packing (phase 2) and
     phase 15 alone; its launch counts are printed, no kernel table."""
@@ -3838,6 +4205,25 @@ def lm_only():
     totals = {k: 0 for k in SOURCES}
     run_lm(torch.device(*CARD), totals)
     phase("16 (LM serving)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
+def train_only():
+    """``--train``: the build and phase 17 alone; its launch counts are
+    printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_train(torch.device(*CARD), totals)
+    phase("17 (LM training)", t0)
     log(f"launches {totals}")
     return 0
 
@@ -3947,6 +4333,8 @@ def main() -> int:
         return scale_out_only()
     if sys.argv[1:2] == ["--lm"]:
         return lm_only()
+    if sys.argv[1:2] == ["--train"]:
+        return train_only()
     if sys.argv[1:2] == ["--scale-out-worker"]:
         return scale_out_worker(*sys.argv[2:5])
     sys.path.insert(0, str(ROOT / "src"))
@@ -4075,6 +4463,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_lm(device, totals)
     t0 = phase("16 (LM serving)", t0)
+
+    # ---- 17: the decoder LMs' training path --------------------------------
+    torch.cuda.empty_cache()
+    run_train(device, totals)
+    t0 = phase("17 (LM training)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

@@ -126,8 +126,9 @@ def _direct_attend(q, k, v, q_pos, kv_pos, causal, window):
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     qg, k = _promoted(q.reshape(B, Sq, Hkv, Hq // Hkv, hd), k)
-    logits = torch.einsum("bshgk,bthk->bhgst", qg, k)
-    logits.mul_(hd ** -0.5)                   # in the operands' type
+    # scaled out of place, in the operands' type: remat="dots" keeps the
+    # einsum's output, which must not change after
+    logits = torch.einsum("bshgk,bthk->bhgst", qg, k) * hd ** -0.5
     mask = _mask(q_pos, kv_pos, causal, window)          # [B?,Sq,Skv]
     if mask.dim() == 2:
         mask = mask[None]
@@ -201,8 +202,9 @@ def flash_attend(q, k, v, causal: bool) -> torch.Tensor:
     if q.is_cuda and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "the flash kernel is forward-only; training through attention "
-            "is the next slice (ROADMAP.md queue 1, item 5a)")
+            "the flash kernel is forward-only: a training forward takes the "
+            "torch attention path (forward(batch, kernel=False), as "
+            "launch/steps.py::make_train_step does)")
     out = ops.flash_attention(heads(q, 1), heads(k, g), heads(v, g),
                               causal=causal)
     return out.transpose(1, 2)
@@ -223,7 +225,8 @@ def attention_block(params, x, cfg: ArchConfig, positions, *,
     * training/prefill: ``cache is None`` -> self-attention over ``x``;
       through the flash kernel when ``kernel`` and :func:`kernel_masks`
       (``index_positions``: the caller built ``positions`` as the indices
-      ``0..S-1``); ``kernel=False`` forces the torch path (a test switch).
+      ``0..S-1``); ``kernel=False`` forces the torch path (training, and
+      the tests' comparisons).
     * decode: ``cache`` given, ``x`` is [B, 1, D]; writes K/V at
       ``cache_pos`` (ring position for SWA) and attends over the cache.
     * cross-attention: ``kv_source`` (encoder output, train) or

@@ -67,10 +67,13 @@ class BaseModel(ParamTree):
     def decode_step(self, cache, tokens, pos: int):
         raise NotImplementedError
 
-    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The reference's loss, forward only: next-token CE over the
-        padded vocab plus 0.01 of the MoE aux loss."""
-        logits, aux = self.forward(batch)
+    def loss(self, batch, *, kernel: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's loss: next-token CE over the padded vocab plus
+        0.01 of the MoE aux loss. ``kernel`` goes to :meth:`forward`: the
+        training step passes ``False``, since the flash kernel has no
+        backward."""
+        logits, aux = self.forward(batch, kernel=kernel)
         labels = torch.as_tensor(batch["labels"], device=self.device)
         ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:]).mean()
         total = ce + 0.01 * aux
@@ -111,7 +114,8 @@ class DecoderLM(BaseModel):
 
     def forward(self, batch, *, kernel: bool = True):
         """``kernel=False`` runs every attention layer on the torch path
-        (``attend``) instead of the flash kernel: a test switch."""
+        (``attend``) instead of the flash kernel: the training path (the
+        kernel has no backward) and the tests' comparisons."""
         cfg = self.cfg
         x, positions, index = self._embed_inputs(batch)
         x, aux = run_stack(self.blocks, x, cfg, positions,

@@ -6,15 +6,25 @@ are registered under the reference's tree paths (``blocks.<i>.attn.wq``,
 ``blocks.<i>.moe.router``, ...) and read like the reference's dicts
 (``params["attn"]``, ``"bq" in params``, ``params.get("lm_head", ...)``).
 The reference stacks the blocks on a leading layer axis and may scan
-them; here they are one tree a layer and the loop is in Python.
-Rematerialisation (``_remat``) waits for the training slice: with no
-gradient it changes nothing.
+them; here they are one tree a layer and the loop is in Python. The
+leaves are registered without a gradient (serving needs none); training
+turns them on (``model.requires_grad_(True)``, as
+``launch/steps.py::loss_and_grads`` does).
+
+Rematerialisation (:func:`_remat`) wraps each block by ``cfg.remat`` as
+the reference's ``jax.checkpoint`` does: ``block``/``full`` keep only the
+block's inputs and recompute it in the backward pass, ``dots`` also keeps
+the outputs of its matrix products. With no gradient it is the plain
+call.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from .attention import KVCache, attention_block, init_attention
@@ -26,8 +36,9 @@ from .moe import init_moe, moe_block
 class ParamTree(torch.nn.Module):
     """A nested mapping of tensors as an ``nn.Module``: a mapping becomes
     a submodule, a list a ``ModuleList`` of them, a tensor a parameter
-    (no gradient: the serving path), under the mapping's keys. The
-    tensors are registered as they are, not copied."""
+    (registered without a gradient; training turns it on), under the
+    mapping's keys. The tensors are registered as they are, not
+    copied."""
 
     def __init__(self, tree: Optional[Mapping[str, Any]] = None):
         super().__init__()
@@ -57,6 +68,13 @@ class ParamTree(torch.nn.Module):
 
     def get(self, name: str, default=None):
         return self[name] if name in self else default
+
+    def paths(self) -> Dict[str, torch.nn.Parameter]:
+        """The parameters keyed by their ``/``-joined tree paths
+        (``blocks/3/attn/wq``): the mapping the optimiser and the
+        checkpoints take."""
+        return {name.replace(".", "/"): p
+                for name, p in self.named_parameters()}
 
     def tree(self) -> Dict[str, Any]:
         """The nested mapping back, the same tensors."""
@@ -153,16 +171,49 @@ def lm_logits(params, x, cfg: ArchConfig):
 # Layer-stack runners
 # ---------------------------------------------------------------------------
 
+#: the matrix products whose outputs ``remat="dots"`` keeps (the aten
+#: ops ``torch.matmul`` and ``einsum`` reach), as
+#: ``jax.checkpoint_policies.checkpoint_dots`` keeps ``dot_general``'s
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` rematerialised by ``cfg.remat``: ``none`` the plain call,
+    ``block``/``full`` a checkpoint of the whole call, ``dots`` a
+    selective one that keeps the matrix products' outputs. Without a
+    gradient the plain call."""
+    if cfg.remat == "none":
+        return fn
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+               if cfg.remat == "dots" else None)
+
+    def rematerialised(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        if context is None:
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context,
+                          **kwargs)
+    return rematerialised
+
+
 def run_stack(blocks, x, cfg: ArchConfig, positions, *, causal=True,
               enc_out=None, mesh_info=None, index_positions: bool = False,
               kernel: bool = True):
-    """Run all layers (train/prefill): ``blocks`` one tree a layer."""
+    """Run all layers (train/prefill): ``blocks`` one tree a layer, each
+    block rematerialised by ``cfg.remat``."""
+    body = _remat(decoder_block, cfg)
     aux_total = torch.zeros((), device=x.device)
     for layer in blocks:
-        x, _, aux = decoder_block(layer, x, cfg, positions, causal=causal,
-                                  enc_out=enc_out, mesh_info=mesh_info,
-                                  index_positions=index_positions,
-                                  kernel=kernel)
+        x, _, aux = body(layer, x, cfg, positions, causal=causal,
+                         enc_out=enc_out, mesh_info=mesh_info,
+                         index_positions=index_positions, kernel=kernel)
         aux_total = aux_total + aux
     return x, aux_total
 

@@ -1,6 +1,5 @@
 """Elastic rescale: move a tree of sharded arrays from one fabric to
-another (counterpart of ``repro/runtime/elastic.py:1-49``, without
-``rescale_from_checkpoint``, which comes with the checkpoint module).
+another (counterpart of ``repro/runtime/elastic.py:1-49``).
 
 A :class:`ShardedArray` is the stacked per-shard blocks of one global
 array (:meth:`Fabric.shard`) together with its :class:`Sharding`, the
@@ -13,11 +12,13 @@ leaf to a fabric, typically a :meth:`Fabric.resize` result, so a changed
 shard count degrades capacity instead of ending the run. On a
 distributed fabric a leaf holds this process's blocks only: a move
 gathers the blocks across processes and keeps the target's local rows.
+:func:`rescale_from_checkpoint` restores a checkpoint written on any
+fabric onto target shardings.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -84,3 +85,13 @@ def rescale(tree: Any, fabric: Fabric, specs: Any) -> Any:
     :func:`reshard`."""
     return reshard(tree, _tree_map(lambda _, s: Sharding(fabric, s),
                                    tree, specs))
+
+
+def rescale_from_checkpoint(ckpt_dir: str, step: int, target_state: Any,
+                            target_shardings: Optional[Any]) -> Any:
+    """:func:`repro_torch.checkpoint.checkpoint.restore` of ``step`` into
+    ``target_state``'s structure, each leaf placed by its
+    :class:`Sharding` in ``target_shardings`` (``None``: on the target
+    leaf's device)."""
+    from ..checkpoint import checkpoint as ckpt   # it imports this module
+    return ckpt.restore(ckpt_dir, step, target_state, target_shardings)

@@ -1,9 +1,10 @@
-"""The port's decoder-LM serving path on its own (no reference needed):
-weights from a generator and shared across activation types, the device
-and family rules, and the ``launch/serve.py`` CLI on the CPU; on the
-card, the flash kernel as the attention layers' kernel. This file
-imports torch, numpy and the port only (no jax), so that it runs on a
-machine with a card:
+"""The port's decoder-LM serving and training paths on their own (no
+reference needed): weights from a generator and shared across activation
+types, the device and family rules, and the ``launch/serve.py`` CLI on
+the CPU; on the card, the flash kernel as the attention layers' kernel,
+its refusal of a gradient, and a train step through ``moe_dcra`` against
+the same step on the CPU. This file imports torch, numpy and the port
+only (no jax), so that it runs on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm.py
 
@@ -16,9 +17,14 @@ import pytest
 import torch
 
 from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.core.dispatch import MeshInfo
+from repro_torch.core.fabric import Fabric
 from repro_torch.data.pipeline import synth_batch
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import route as troute
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as tsteps
+from repro_torch.models.attention import flash_attend
 from repro_torch.models.model_zoo import build_model
 
 
@@ -68,6 +74,58 @@ def test_serve_cli_runs_on_the_cpu(capsys):
                  "--batch", "2", "--prompt-len", "5", "--gen", "3"])
     out = capsys.readouterr().out
     assert "generated (2, 3) on cpu" in out
+
+
+def test_serve_and_prefill_steps_follow_serve():
+    """``make_serve_step`` fed the prompt then its own ids gives
+    ``serve``'s greedy ids; ``make_prefill_step`` gives the first of them
+    from one forward; ``make_train_step`` refuses another ``MeshInfo``
+    than the model's."""
+    m = _model("qwen2-1.5b", "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, m.cfg.vocab_size, (2, 6)).astype(np.int32))
+    want = tserve.serve(m.cfg, m, prompts, 4)
+    step = tsteps.make_serve_step(m)
+    cache = m.init_cache(2, 10, torch.float32)
+    got = []
+    for t in range(9):
+        tok = prompts[:, t:t + 1] if t < 6 else got[-1]
+        nxt, cache = step(cache, tok, t)
+        assert nxt.dtype == torch.int32 and nxt.shape == (2, 1)
+        if t >= 5:
+            got.append(nxt)
+    assert torch.equal(torch.cat(got, 1), want)
+    first = tsteps.make_prefill_step(m)({"tokens": prompts})
+    assert torch.equal(first, want[:, 0])
+    with pytest.raises(ValueError, match="mesh_info"):
+        tsteps.make_train_step(m, tsteps.default_optimizer(), mesh_info=(
+            MeshInfo(Fabric.virtual((2, 2, 1), ("data", "expert", "tp"),
+                                    device="cpu"))))
+
+
+def test_restart_replays_the_uninterrupted_losses(tmp_path):
+    """``launch/train.py``'s trainer under ``run_training``: a failure at
+    step 7 with a checkpoint every 5 steps restores step 4's parameters
+    and AdamW state and replays steps 5 and 6: the 10 losses of the run
+    without the failure, within 1e-6 relative (the same ops on the same
+    values, but two uninterrupted runs on the CPU may already differ in
+    the last bits: its sums are not repeatable bit for bit)."""
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault_tolerance import FailurePlan, run_training
+    args = train.parser().parse_args(["--reduced", "--steps", "10", "--batch",
+                                      "2", "--seq", "32", "--device", "cpu"])
+    runs = []
+    for plan in (None, FailurePlan({7: "injected"})):
+        step_fn, init_state, batch_fn = train.trainer(args)
+        res = run_training(step_fn, init_state, batch_fn, 10,
+                           str(tmp_path / str(len(runs))), ckpt_every=5,
+                           failure_plan=plan)
+        runs.append(res)
+    assert [r.restarts for r in runs] == [0, 1]
+    assert [r.final_step for r in runs] == [10, 10]
+    assert np.allclose([m["loss"] for m in runs[1].metrics_history],
+                       [m["loss"] for m in runs[0].metrics_history],
+                       rtol=1e-6, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -123,3 +181,75 @@ def test_cuda_attention_takes_the_kernel_where_its_mask_is_the_layers(
         logits, _ = m.forward(_batch(m.cfg, S=seq))
     assert tflash.LAUNCHES["flash_attention"] == launches
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_glue_refuses_a_gradient(cuda_device):
+    """The flash kernel is forward-only: asked for a gradient on the card
+    the glue raises, naming the training path's choice; without one it
+    launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(1, 64, 4, 16, generator=g, device=cuda_device)
+               for _ in range(3))
+    with pytest.raises(NotImplementedError, match="kernel=False"):
+        flash_attend(q.requires_grad_(True), k, v, True)
+    m = _model("granite-8b", cuda_device)
+    m.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        m.loss(_batch(m.cfg, S=32))
+    with torch.no_grad():
+        tflash.reset_launches()
+        flash_attend(q, k, v, True)
+    assert tflash.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_olmoe_train_step_through_moe_dcra_matches_the_cpu(
+        cuda_device):
+    """Reduced OLMoE-1B-7B with a ``MeshInfo`` over (data 2, expert 2,
+    tp 1): one ``make_train_step`` step on the card through ``moe_dcra``
+    (the ``bucket_scatter`` kernel, ``staged``: two buckets a layer a
+    forward, twice with remat ``block``; no flash launch) against the
+    same step on the CPU from the same weights and batch: the loss within
+    1e-5 relative, every gradient leaf (the first moment) within 1e-4 of
+    its max, the new parameters within 2 lr (AdamW's first update moves
+    an entry by at most lr(1 + wd|p|))."""
+    cfg = get_config("olmoe-1b-7b").reduced()
+    shape, names = (2, 2, 1), ("data", "expert", "tp")
+    gen = torch.Generator().manual_seed(3)
+    cpu = build_model(cfg, mesh_info=MeshInfo(Fabric.virtual(
+        shape, names, device="cpu"))).init(gen)
+    card = build_model(cfg, mesh_info=MeshInfo(Fabric.virtual(
+        shape, names, device=cuda_device)))
+    card.load(_to(cpu.tree(), cuda_device))
+    batch = _batch(cfg, S=64)
+    out = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        opt = tsteps.default_optimizer()
+        step = tsteps.make_train_step(m, opt)
+        troute.reset_launches()
+        tflash.reset_launches()
+        params, state, metrics = step(m.paths(), opt.init(m.paths()), batch)
+        out[name] = ({k: v.detach().cpu() for k, v in params.items()},
+                     {k: v.cpu() for k, v in state.mu.items()},
+                     float(metrics["loss"]))
+    assert troute.LAUNCHES["bucket_scatter"] == 4 * cfg.num_layers
+    assert troute.PATHS["bucket_scatter"]["staged"] == sum(
+        troute.PATHS["bucket_scatter"].values()) == 4 * cfg.num_layers
+    assert tflash.LAUNCHES["flash_attention"] == 0
+    (p_cpu, mu_cpu, l_cpu), (p_card, mu_card, l_card) = out["cpu"], out["card"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    lr1 = float(tsteps.default_optimizer().lr(torch.tensor(1)))
+    for k in p_cpu:
+        scale = float(mu_cpu[k].abs().max())
+        assert float((mu_card[k] - mu_cpu[k]).abs().max()) <= 1e-4 * scale, k
+        assert float((p_card[k] - p_cpu[k]).abs().max()) <= 2 * lr1 * (
+            1 + float(p_cpu[k].abs().max())), k
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
