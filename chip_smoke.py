@@ -8,6 +8,7 @@
     python3 chip_smoke.py --scale-out          # phase 15 alone (after 2)
     python3 chip_smoke.py --lm                 # phase 16 alone (after the build)
     python3 chip_smoke.py --train              # phase 17 alone (after the build)
+    python3 chip_smoke.py --recurrent          # phase 18 alone (after the build)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -80,7 +81,8 @@ script exits non-zero with no result line:
    buckets (the fused packaging's ``xe`` of all shards, w = wg, the real
    expert of every row tile) in float32 and in bf16, and
    ``ops.flash_attention`` at OLMoE's attention widths (B 2, H 16, S
-   4096, hd 128, causal, bf16 and float32), each on the design its launch
+   4096, hd 128, causal, bf16 and float32; the edge cases include hd
+   112, zamba2's head width, on wgmma and blocked), each on the design its launch
    plan names (asserted from the wrappers' ``PATHS``) and timed beside
    its bound, its plain version and one PyTorch call (``torch.bmm``,
    ``scaled_dot_product_attention``, whose float32 kernel phase 1
@@ -102,7 +104,7 @@ script exits non-zero with no result line:
    host's blocking reads a round;
 13. the resident server: RMAT-20 (Graph500 parameters, seed 1) on 64
    shards behind a ``ProgramServer`` of batch width 4 (a product graph
-   of 4 * 2^20 vertices), 64 requests from 4 tenants, BFS and SSSP,
+   of 4 * 2^20 vertices), 32 requests from 4 tenants, BFS and SSSP,
    roots from a seeded generator, served in lockstep, pipelined, with
    donated buffers and in lockstep at inflight depth 3: pre-warm adds
    one key a class, no build and no drop under load,
@@ -184,9 +186,37 @@ script exits non-zero with no result line:
    steps at peak 3e-3, warmup 5: the loss below 0.7 of its first; (c)
    ``run_training`` of the same trainer with a failure at step 7 and a
    checkpoint every 5 steps: one restart, final step 20, the losses of
-   the run without the failure.
+   the run without the failure;
+18. the recurrent, hybrid and encoder-decoder LMs (``models/rwkv6.py``,
+   ``models/mamba2.py``, ``RWKVLM`` / ``HybridLM`` / ``EncDecLM``) at their
+   published widths, float32 weights from ``torch.Generator`` seed 1 on
+   the card, ``synth_batch`` at train_4k cut to batch 2: (a) zamba2-7b
+   (81 Mamba2 layers, d_model 3584, 32/32 heads of 112 in the shared
+   block, d_ff 14336, vocab 32000, ssm state 64; 27.0 GB) on [2, 4096]:
+   one forward in float32 and one in bf16, the shared block on flash (13
+   launches each, ``blocked`` / ``wgmma`` from ``PATHS``), each against
+   the torch path (float32 within ``logit_bound``; bf16 no farther from
+   the float32 logits than the torch path's bf16 run plus that bound),
+   the kernel at the block's own [64, 4096, 112] against its plain
+   version, layer 0's chunked SSD (chunk 256) against ``ssd_scan`` within
+   1e-3 of max|y|, ``serve`` of 2 prompts x 64 tokens with 16 generated
+   (decode logits at the last prompt position against the forward's);
+   (b) rwkv6-7b (32 layers, d_model 4096, 64 WKV heads of 64, d_ff
+   14336, vocab 65536; 30.1 GB): the same forwards (no kernel runs on
+   this path), layer 0's chunked WKV against ``wkv_scan`` within 1e-4,
+   ``serve``; (c) seamless-m4t-large-v2 (24 encoder and 24 decoder
+   layers, d_model 1024, 16/16 heads of 64, vocab 256206; 8.1 GB) on
+   frames [2, 2048] and tokens [2, 2048]: the forwards with 24 non-causal
+   (encoder) and 24 causal (decoder) flash launches each, the kernel at
+   each mask's first inputs against its plain version, and 16 decode
+   steps over ``precompute_cross_kv`` of the encoder's output against the
+   forward's logits; (d) zamba2-7b training at its width with its depth
+   cut from 81 to 12 layers (two applications of the shared block, 1.37e9
+   parameters), remat ``block``, 3 AdamW steps on [2, 4096]: every
+   gradient leaf and loss finite, no flash launch; ms a step, tokens/s,
+   peak bytes.
 
-Each path of phases 4-7, 9-17 runs with every kernel's launch count set
+Each path of phases 4-7, 9-18 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -1912,8 +1942,9 @@ def gmm_flash_edge_cases(device):
     expert, bf16 and float32, on each design (wgmma, blocked, simt, as
     launch_plan picks it), F off ft refused, a group id out of range
     giving zero rows on every design; flash at one causal tile,
-    non-causal, a ragged S, hd off 16 and 128, hd 64 / 96 / 128 at S 128
-    / 300 / 1024 in bf16 (wgmma), float32 at hd 4 / 80 / 100 / 128, S 1,
+    non-causal, a ragged S, hd off 16 and 128, hd 64 / 96 / 112 / 128 at S
+    128 / 256 / 300 / 1024 in bf16 (wgmma), float32 at hd 4 / 80 / 100 /
+    112 / 128, S 1,
     a ragged S past one 128-row tile and non-causal (blocked), bf16 with
     hd off 8, float32 with hd off 4 and a float32 view 4 bytes off
     alignment (simt), constant V; and the gmm, flash and BSR C entry
@@ -1991,7 +2022,13 @@ def gmm_flash_edge_cases(device):
         (2, 128, 64, bf16, True, "wgmma"), (2, 300, 96, bf16, True, "wgmma"),
         (2, 300, 128, bf16, False, "wgmma"),
         (2, 1024, 128, bf16, False, "wgmma"),
-        (2, 1024, 64, bf16, True, "wgmma"), (1, 1, 8, bf16, True, "wgmma")]
+        (2, 1024, 64, bf16, True, "wgmma"), (1, 1, 8, bf16, True, "wgmma"),
+        # zamba2's shared block: hd 112 (a 224-byte TMA row, 16 zero
+        # columns padding it to 128 on wgmma)
+        (2, 300, 112, f32, True, "blocked"), (2, 256, 112, f32, False,
+                                              "blocked"),
+        (2, 300, 112, bf16, True, "wgmma"), (2, 256, 112, bf16, False,
+                                             "wgmma")]
     for bh, s, hd, dt, causal, design in flash_cases:
         q, k, v = (rand(bh, s, hd, dtype=dt) for _ in range(3))
         if design == "simt" and dt == f32 and hd % 4 == 0:
@@ -2652,7 +2689,7 @@ def run_pipelined(g, root, want, setup, device, totals, pagerank):
 # ---------------------------------------------------------------------------
 
 SERVE_SCALE = 20                   # RMAT scale of the resident graph
-SERVE_REQUESTS, SERVE_WIDTH, SERVE_TENANTS = 64, 4, 4
+SERVE_REQUESTS, SERVE_WIDTH, SERVE_TENANTS = 32, 4, 4
 SERVE_SAMPLES = 8                  # responses held to standalone runs
 SERVE_PROFILED = 16                # requests of the profiled pass
 
@@ -3442,10 +3479,14 @@ def logit_bound(cfg, dtype, seq_len):
     bf16, so two values one ulp apart differ by up to 2^-7 of their size,
     and the two runs round the stream at other points, about two ulps a
     layer that add as a random walk: ``2^-7 (1 + 2 sqrt(L))`` (a narrow
-    36-layer granite on the CPU: 0.022 against 0.10)."""
+    36-layer granite on the CPU: 0.022 against 0.10). L counts every
+    layer the stream passes: an encoder's too, and a hybrid's
+    applications of its shared block."""
     import math
     import torch
-    L = cfg.num_layers
+    L = cfg.num_layers + cfg.encoder_layers
+    if cfg.hybrid_attn_period:
+        L += cfg.num_layers // cfg.hybrid_attn_period
     if dtype == torch.bfloat16:
         return 2.0 ** -7 * (1 + 2 * math.sqrt(L))
     ff = cfg.moe.d_expert if cfg.moe is not None else cfg.d_ff
@@ -3496,16 +3537,24 @@ class FirstFlashInputs:
     """Within: keeps copies of the first ``ops.flash_attention`` call's
     q, k, v as [B*H, S, hd], and its ``causal`` (layer 0's attention,
     after the glue's GQA expansion: the kernel's input on the main path)
-    in ``self.seen``."""
+    in ``self.seen``, and the first call of each mask in ``self.by_mask``
+    (``{causal: (q, k, v, causal)}``: an encoder-decoder's first encoder
+    and first decoder layer); ``self.masks`` lists every call's
+    ``causal``."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self.ops, self.real, self.seen = ops, ops.flash_attention, None
+        self.by_mask, self.masks = {}, []
 
         def keep(q, k, v, causal=True):
-            if self.seen is None:
-                self.seen = tuple(t.reshape(-1, *t.shape[2:]).clone()
-                                  for t in (q, k, v)) + (causal,)
+            self.masks.append(causal)
+            if causal not in self.by_mask:
+                self.by_mask[causal] = tuple(
+                    t.reshape(-1, *t.shape[2:]).clone()
+                    for t in (q, k, v)) + (causal,)
+                if self.seen is None:
+                    self.seen = self.by_mask[causal]
             return self.real(q, k, v, causal=causal)
         ops.flash_attention = keep
         return self
@@ -3533,45 +3582,84 @@ def lm_flash_check(tag, seen, want_shape):
            if share is not None else "") + f" [{SMI}]")
 
 
-def lm_forwards(tag, model, batch, dtype, design, totals):
-    """One forward on the kernel path (a main path: one flash launch a
-    layer on ``design``; layer 0's kernel inputs kept and the kernel held
-    to its plain version on them), then the same forward with every
-    attention layer on the torch path (``kernel=False``): the logits
-    within :func:`logit_bound`, each forward's ms and peak bytes (warm,
-    the kernel path's first logits held). Returns those logits."""
+def lm_forwards(tag, model, batch, dtype, design, totals, masks=None,
+                ref=None):
+    """One forward on the kernel path (a main path: one flash launch an
+    attention layer on ``design``, of the masks ``masks`` in order
+    (default: causal, one a layer); the first kernel inputs of each mask
+    kept and the kernel held to its plain version on them), then the
+    same forward with every attention layer on the torch path
+    (``kernel=False``): the logits within :func:`logit_bound`, each
+    forward's ms and peak bytes (warm, the kernel path's first logits
+    held). ``design`` None: a model without attention, no launch at all.
+    ``ref``: the float32 logits of the same model, for a bf16 run whose
+    stack amplifies a rounding (a Mamba2 stack with random weights moves
+    its bf16 logits 0.12-0.21 of max|logit| from its float32 ones on the
+    CPU): then the kernel path's logits are held to lie within
+    :func:`logit_bound` farther from ``ref`` than the torch path's, and
+    their distance to the torch path's is reported. Returns the kernel
+    path's logits."""
     import torch
     from repro_torch.kernels import flash_attention as flash
     cfg = model.cfg
-    L = cfg.num_layers
-    with MainPath(f"{tag} forward", ("flash_attention",), totals) as path:
+    if masks is None:
+        masks = [True] * (cfg.num_layers if design else 0)
+    L = len(masks)
+    need = ("flash_attention",) if L else ()
+    with MainPath(f"{tag} forward", need, totals) as path:
         with FirstFlashInputs() as first:
             got, ms, _ = timed_forward(model, batch, reps=0)
-    on_design = flash.PATHS[design]
-    if path.launches["flash_attention"] != L or on_design != L:
+    on_design = flash.PATHS[design] if design else 0
+    if (path.launches["flash_attention"] != L or on_design != L
+            or first.masks != masks):
         raise AssertionError(f"{tag}: flash launches {path.launches}, "
-                             f"designs {flash.PATHS}; want {L} on {design}")
+                             f"designs {flash.PATHS}, masks {first.masks}; "
+                             f"want {L} on {design}, masks {masks}")
     B, S = got.shape[:2]
-    lm_flash_check(tag, first.seen, (B * cfg.num_heads, S,
-                                     cfg.resolved_head_dim))
-    del first.seen
+    for seen in first.by_mask.values():
+        lm_flash_check(tag, seen, (B * cfg.num_heads, seen[0].shape[1],
+                                   cfg.resolved_head_dim))
+    del first.seen, first.by_mask
     _, ms_warm, peak = timed_forward(model, batch)
     want, ms_plain, peak_plain = timed_forward(model, batch, kernel=False)
     bound = logit_bound(cfg, dtype, batch["tokens"].shape[1])
-    err, share = logits_held(f"{tag} kernel vs torch path", got, want, bound)
-    log(f"lm {tag}: logits {tuple(got.shape)} {got.dtype}; flash launches "
-        f"{path.launches['flash_attention']} (design {design}: "
-        f"{on_design}); forward {ms:.2f} ms first, {ms_warm:.2f} "
+    if ref is None:
+        err, share = logits_held(f"{tag} kernel vs torch path", got, want,
+                                 bound)
+        held = ""
+    else:
+        scale = float(ref.abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        share = err / float(want.float().abs().max())
+        e_k, e_p = (float((t.float() - ref).abs().max()) / scale
+                    for t in (got, want))
+        if not (e_k <= e_p + bound and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{tag}: the kernel path's logits "
+                                 f"{e_k:.4e} of max|logit| from the float32 "
+                                 f"forward's, the torch path's {e_p:.4e}; "
+                                 f"bound {bound:.4e} more")
+        held = (f"; from the float32 forward's logits: kernel path "
+                f"{e_k:.4e}, torch path {e_p:.4e} of max|logit| (held: "
+                f"kernel <= torch + bound), kernel vs torch reported")
+    kernels = (f"flash launches {path.launches['flash_attention']} "
+               f"(design {design}: {on_design}, causal "
+               f"{sum(masks)}, non-causal {L - sum(masks)})" if L else
+               "no kernel on this path (no attention: kernel=False is the "
+               "same forward)")
+    log(f"lm {tag}: logits {tuple(got.shape)} {got.dtype}; {kernels}; "
+        f"forward {ms:.2f} ms first, {ms_warm:.2f} "
         f"ms warm ({B * S / ms_warm * 1e3:.4e} tokens/s), peak "
-        f"{peak} B; the torch path (_direct_attend) {ms_plain:.2f} ms warm, "
+        f"{peak} B; kernel=False (the torch attention path) {ms_plain:.2f} "
+        f"ms warm, "
         f"peak {peak_plain} B; max |dlogit| {err:.4e} = {share:.4e} of "
-        f"max|logit| (bound {bound:.4e}) [{SMI}]")
+        f"max|logit| (bound {bound:.4e}){held} [{SMI}]")
     del want
     return got
 
 
-def lm_serve(model, totals, device):
-    """``launch/serve.py::serve`` on the model: ``LM_SERVE`` prompts from
+def lm_serve(model, totals, device, shape=None):
+    """``launch/serve.py::serve`` on the model: ``shape`` (prompts, prompt
+    length, generated; default ``LM_SERVE``) prompts from
     ``torch.Generator`` seed ``SEED``, a float32 cache; tokens/s, ms a
     decode step (each step synchronised), peak bytes; the teacher-forced
     decode's logits at the last prompt position held to the kernel-path
@@ -3580,7 +3668,7 @@ def lm_serve(model, totals, device):
     import torch
     from repro_torch.launch.serve import serve
     cfg = model.cfg
-    B, P, G = LM_SERVE
+    B, P, G = shape or LM_SERVE
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
@@ -3600,7 +3688,7 @@ def lm_serve(model, totals, device):
     model.decode_step = timed_step
     try:
         torch.cuda.reset_peak_memory_stats()
-        with MainPath(f"serve {LM_ARCH}", (), totals) as path:
+        with MainPath(f"serve {cfg.name}", (), totals) as path:
             t0 = time.perf_counter()
             ids = serve(cfg, model, prompts, G)
             torch.cuda.synchronize()
@@ -3619,7 +3707,7 @@ def lm_serve(model, totals, device):
     bound = logit_bound(cfg, torch.float32, P)
     err, share = logits_held("serve decode vs forward", at["logits"],
                              want[:, P - 1], bound)
-    log(f"lm serve {LM_ARCH}: {B} prompts x {P} tokens, {G} generated, "
+    log(f"lm serve {cfg.name}: {B} prompts x {P} tokens, {G} generated, "
         f"float32 cache: {B * G / wall:.4e} tokens/s ({wall:.3f} s, "
         f"prefill by {P - 1} teacher-forced steps); ms a decode step mean "
         f"{sum(steps) / len(steps):.3f}, max {max(steps):.3f}, mean after "
@@ -4166,6 +4254,297 @@ def run_train(device, totals):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the recurrent, hybrid and encoder-decoder LMs
+# ---------------------------------------------------------------------------
+
+REC_TOKENS = (2, 4096)             # TRAIN_4K cut to batch 2
+REC_SERVE = (2, 64, 16)            # prompts, prompt length, generated
+REC_DECODE = 16                    # seamless: decode steps over the encoder
+REC_TRAIN_LAYERS = 12              # zamba2-7b cut from 81 layers
+REC_TRAIN_STEPS = 3
+#: chunked against scan at layer 0, as a share of max|y|: the reference
+#: tests' bounds (tests/test_models.py: 1e-4 RWKV, 1e-3 Mamba)
+WKV_SCAN_REL, SSD_SCAN_REL = 1e-4, 1e-3
+
+
+class FirstCall:
+    """Within: ``module.name`` runs as it is and keeps copies of its first
+    call's arguments (``self.args``, ``self.kw``): a recurrence's inputs
+    at layer 0 on the main path."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args, self.kw = module, name, None, None
+
+    def __enter__(self):
+        import torch
+        self.real = getattr(self.module, self.name)
+
+        def keep(*args, **kw):
+            if self.args is None:
+                self.args = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                  else a for a in args)
+                self.kw = dict(kw)
+            return self.real(*args, **kw)
+        setattr(self.module, self.name, keep)
+        return self
+
+    def __exit__(self, *_):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def chunked_vs_scan(tag, first, scan, rel):
+    """The chunked recurrence against the scan on the inputs ``first``
+    kept (layer 0's): y and the end state within ``rel`` of max|.| of
+    the scan's; both timed (one synchronised run each, the chunked form's
+    after a warm-up run)."""
+    import torch
+    chunked = first.real
+    chunked(*first.args, **first.kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_c, s_c = chunked(*first.args, **first.kw)
+    torch.cuda.synchronize()
+    ms_c = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    y_s, s_s = scan(*first.args)
+    torch.cuda.synchronize()
+    ms_s = (time.perf_counter() - t0) * 1e3
+    errs = []
+    for what, got, want in (("y", y_c, y_s), ("state", s_c, s_s)):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not err <= rel * scale:
+            raise AssertionError(f"{tag}: chunked {what} {err} from the "
+                                 f"scan's, above {rel} of {scale}")
+        errs.append(err / scale)
+    log(f"lm {tag}: layer 0's chunked recurrence ({first.kw or 'the '
+        f'default chunk'}) on its main "
+        f"path inputs {tuple(first.args[0].shape)} against the exact scan: "
+        f"y within {errs[0]:.3e}, the end state {errs[1]:.3e} of max|.| "
+        f"(bound {rel:.0e}); chunked {ms_c:.2f} ms, scan {ms_s:.2f} ms "
+        f"[{SMI}]")
+
+
+def rec_model(arch, device, **replace):
+    """The arch's model at its published width (``replace``: the cut)
+    with float32 weights from ``torch.Generator`` seed ``SEED`` on the
+    card, logged with its dimensions, bytes and seconds."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_config(arch), **replace)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    model = build_model(cfg, device=device).init(gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+             f"{cfg.resolved_head_dim}" if cfg.num_heads else
+             f"{cfg.d_model // cfg.ssm.head_dim} WKV heads of "
+             f"{cfg.ssm.head_dim}")
+    ssm = (f", ssm state {cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}"
+           if cfg.family == "hybrid" else "")
+    log(f"lm {arch} ({cfg.source}): {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}{ssm}; {n} float32 parameters ({4 * n} B) from "
+        f"torch.Generator seed {SEED} on the card in "
+        f"{time.perf_counter() - t0:.2f} s"
+        + (f" (cut: {replace})" if replace else ""))
+    return model
+
+
+def rec_forwards(tag, model, batch, design_f32, design_bf16, totals,
+                 masks=None):
+    """:func:`lm_forwards` in float32, then in bf16 on a model that shares
+    the weights; returns the float32 logits."""
+    import torch
+    from repro_torch.models.model_zoo import build_model
+    with torch.inference_mode():
+        got = lm_forwards(f"{tag} float32", model, batch, torch.float32,
+                          design_f32, totals, masks)
+        bf16 = build_model(model.cfg, dtype=torch.bfloat16,
+                           device=model.device)
+        bf16.load(model.tree())
+        lm_forwards(f"{tag} bf16", bf16, batch, torch.bfloat16, design_bf16,
+                    totals, masks, ref=got)
+        del bf16
+    torch.cuda.empty_cache()
+    return got
+
+
+def rec_zamba(device, totals):
+    """(a) zamba2-7b at its width: the forwards (13 flash launches each,
+    hd 112), layer 0's chunked SSD against the scan, ``serve``."""
+    import torch
+    from repro_torch.models import mamba2
+    model = rec_model("zamba2-7b", device)
+    batch = lm_batch(model.cfg, REC_TOKENS)
+    masks = [True] * (model.cfg.num_layers // model.cfg.hybrid_attn_period)
+    with FirstCall(mamba2, "ssd_chunked") as first:
+        rec_forwards("zamba2-7b", model, batch, "blocked", "wgmma", totals,
+                     masks)
+    with torch.inference_mode():
+        chunked_vs_scan("zamba2-7b", first, mamba2.ssd_scan, SSD_SCAN_REL)
+    del first
+    torch.cuda.empty_cache()
+    lm_serve(model, totals, device, REC_SERVE)
+    del model
+    torch.cuda.empty_cache()
+
+
+def rec_rwkv(device, totals):
+    """(b) rwkv6-7b at its width: the forwards (no kernel on this path),
+    layer 0's chunked WKV against the scan, ``serve``."""
+    import torch
+    from repro_torch.models import rwkv6
+    model = rec_model("rwkv6-7b", device)
+    batch = lm_batch(model.cfg, REC_TOKENS)
+    with FirstCall(rwkv6, "wkv_chunked") as first:
+        rec_forwards("rwkv6-7b", model, batch, None, None, totals)
+    with torch.inference_mode():
+        chunked_vs_scan("rwkv6-7b", first, rwkv6.wkv_scan, WKV_SCAN_REL)
+    del first
+    torch.cuda.empty_cache()
+    lm_serve(model, totals, device, REC_SERVE)
+    del model
+    torch.cuda.empty_cache()
+
+
+def rec_seamless(device, totals):
+    """(c) seamless-m4t-large-v2 at its width on ``synth_batch``'s frames
+    and tokens (train_4k cut to batch 2: src [2, 2048], tokens [2,
+    2048]): the forwards (24 non-causal flash launches in the encoder,
+    then 24 causal in the decoder), then ``REC_DECODE`` decode steps over
+    ``precompute_cross_kv`` of the encoder's output against the float32
+    forward's logits at those positions."""
+    import torch
+    model = rec_model("seamless-m4t-large-v2", device)
+    cfg = model.cfg
+    batch = lm_batch(cfg, REC_TOKENS)
+    masks = [False] * cfg.encoder_layers + [True] * cfg.num_layers
+    logits = rec_forwards("seamless-m4t-large-v2", model, batch, "blocked",
+                          "wgmma", totals, masks)
+    B, T = batch["tokens"].shape[0], REC_DECODE
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    with torch.inference_mode():
+        with MainPath("seamless-m4t-large-v2 decode", (), totals) as path:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = model.encode(batch["src_embeds"])
+            ks, vs = model.precompute_cross_kv(enc)
+            torch.cuda.synchronize()
+            ms_enc = (time.perf_counter() - t0) * 1e3
+            cache = {**model.init_cache(B, T, torch.float32, cross_len=1),
+                     "cross_k": ks, "cross_v": vs}
+            outs = []
+            t0 = time.perf_counter()
+            for t in range(T):
+                lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+                outs.append(lg)
+            torch.cuda.synchronize()
+            ms_dec = (time.perf_counter() - t0) * 1e3 / T
+    if path.launches["flash_attention"] != cfg.encoder_layers:
+        raise AssertionError(f"seamless decode: launches {path.launches}, "
+                             f"want {cfg.encoder_layers} flash (the "
+                             f"encoder) and none in the decode steps")
+    bound = logit_bound(cfg, torch.float32, tokens.shape[1])
+    err, share = logits_held("seamless decode vs forward",
+                             torch.cat(outs, 1), logits[:, :T], bound)
+    log(f"lm seamless-m4t-large-v2 decode over precompute_cross_kv: encode "
+        f"+ cross K/V {ms_enc:.2f} ms (flash launches "
+        f"{path.launches['flash_attention']}, non-causal), {T} "
+        f"teacher-forced steps {ms_dec:.3f} ms a step; logits at positions "
+        f"0-{T - 1} vs the kernel-path forward: max |dlogit| {err:.4e} = "
+        f"{share:.4e} of max|logit| (bound {bound:.4e}) [{SMI}]")
+    del model, logits, cache, ks, vs, enc
+    torch.cuda.empty_cache()
+
+
+class FiniteGrads:
+    """An optimiser that hands every call to ``opt`` after checking that
+    every gradient leaf is finite."""
+
+    def __init__(self, opt):
+        self.opt, self.calls = opt, 0
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        import torch
+        bad = [k for k, g in grads.items() if not bool(
+            torch.isfinite(g).all())]
+        if bad:
+            raise AssertionError(f"train step {self.calls + 1}: gradient "
+                                 f"leaves not finite: {bad[:8]}")
+        self.calls += 1
+        return self.opt.update(grads, state, params)
+
+
+def rec_train(device, totals):
+    """(d) zamba2-7b at its width with its depth cut to
+    ``REC_TRAIN_LAYERS`` (two applications of the shared block), remat
+    ``block``: ``REC_TRAIN_STEPS`` AdamW steps (``make_train_step``,
+    ``default_optimizer()``) on ``synth_batch`` tokens ``REC_TOKENS``,
+    every gradient leaf and loss finite, no flash launch (the training
+    forward takes the torch attention path); ms a step, tokens/s, peak
+    bytes."""
+    import torch
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    model = rec_model("zamba2-7b", device, num_layers=REC_TRAIN_LAYERS)
+    cfg = model.cfg
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in lm_batch(cfg, REC_TOKENS).items()}
+    opt = FiniteGrads(default_optimizer())
+    step = make_train_step(model, opt)
+    params = model.paths()
+    state = opt.init(params)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with MainPath(f"zamba2-7b train ({REC_TRAIN_LAYERS} layers)", (),
+                  totals) as path:
+        for _ in range(REC_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if (any(path.launches.values()) or opt.calls != REC_TRAIN_STEPS
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"zamba2 train: launches {path.launches}, "
+                             f"{opt.calls} steps, losses {losses}")
+    B, S = REC_TOKENS
+    ms = sum(times[1:]) / (len(times) - 1)
+    log(f"train zamba2-7b x {REC_TOKENS}: {REC_TRAIN_LAYERS} of 81 layers "
+        f"({REC_TRAIN_LAYERS // cfg.hybrid_attn_period} applications of the "
+        f"shared block), remat {cfg.remat}; {REC_TRAIN_STEPS} AdamW steps, "
+        f"losses {[round(v, 6) for v in losses]}, every gradient leaf "
+        f"finite; steps {[round(t, 2) for t in times]} ms, mean of steps "
+        f"2-{REC_TRAIN_STEPS} {ms:.2f} ms ({B * S / ms * 1e3:.4e} "
+        f"tokens/s), peak {peak} B; launches {path.launches} (flash 0: "
+        f"training takes the torch attention path) [{SMI}]")
+    del model, params, state, metrics
+    torch.cuda.empty_cache()
+
+
+def run_recurrent(device, totals):
+    """Phase 18: (a) zamba2-7b, (b) rwkv6-7b, (c) seamless-m4t-large-v2 at
+    their published widths, (d) zamba2-7b training at 12 layers."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for part in (rec_zamba, rec_rwkv, rec_seamless, rec_train):
+        t0 = time.perf_counter()
+        part(device, totals)
+        log(f"phase 18 {part.__name__}: {time.perf_counter() - t0:.2f} s")
+
+
 def scale_out_only():
     """``--scale-out``: the build, RMAT-22 and its packing (phase 2) and
     phase 15 alone; its launch counts are printed, no kernel table."""
@@ -4224,6 +4603,25 @@ def train_only():
     totals = {k: 0 for k in SOURCES}
     run_train(torch.device(*CARD), totals)
     phase("17 (LM training)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
+def recurrent_only():
+    """``--recurrent``: the build and phase 18 alone; its launch counts
+    are printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_recurrent(torch.device(*CARD), totals)
+    phase("18 (recurrent, hybrid, encoder-decoder LMs)", t0)
     log(f"launches {totals}")
     return 0
 
@@ -4335,6 +4733,8 @@ def main() -> int:
         return lm_only()
     if sys.argv[1:2] == ["--train"]:
         return train_only()
+    if sys.argv[1:2] == ["--recurrent"]:
+        return recurrent_only()
     if sys.argv[1:2] == ["--scale-out-worker"]:
         return scale_out_worker(*sys.argv[2:5])
     sys.path.insert(0, str(ROOT / "src"))
@@ -4468,6 +4868,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_train(device, totals)
     t0 = phase("17 (LM training)", t0)
+
+    # ---- 18: the recurrent, hybrid and encoder-decoder LMs -----------------
+    torch.cuda.empty_cache()
+    run_recurrent(device, totals)
+    t0 = phase("18 (recurrent, hybrid, encoder-decoder LMs)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

@@ -1,8 +1,7 @@
 """Architecture registry (counterpart of ``repro/configs/__init__.py``):
-``get_config("<arch-id>")`` for the ids the reference knows. Only the
-architectures whose modules the port has are resolved; the others raise
-``KeyError`` until their slice ports them (``ROADMAP.md`` queue 1,
-item 5b: the recurrent, hybrid and encoder-decoder models)."""
+``get_config("<arch-id>")`` resolves the ten ids the reference knows
+(decoder, MoE, VLM, recurrent, hybrid and encoder-decoder); an unknown
+id raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -24,25 +23,24 @@ _ARCH_MODULES: Dict[str, str] = {
     "rwkv6-7b": "rwkv6_7b",
     "zamba2-7b": "zamba2_7b",
 }
-#: the arch ids whose config modules are ported: the decoder LMs (item 5a)
-PORTED = ("mixtral-8x22b", "olmoe-1b-7b", "granite-8b", "h2o-danube-3-4b",
-          "internlm2-1.8b", "qwen2-1.5b", "qwen2-vl-7b")
-
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
+#: the arch ids whose config modules are ported: all of them
+PORTED = tuple(ARCH_IDS)
 
 
 def get_config(arch: str) -> ArchConfig:
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md queue 1, "
-                       f"item 5b); ported: {list(PORTED)}")
     mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 __all__ = [
     "ArchConfig", "MoEConfig", "SSMConfig", "ShapeConfig",
     "ALL_SHAPES", "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
-    "LONG_500K", "ARCH_IDS", "PORTED", "get_config",
+    "LONG_500K", "ARCH_IDS", "PORTED", "get_config", "all_configs",
 ]

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.configs import ARCH_IDS, TRAIN_4K, ShapeConfig, get_config
 from repro_torch.core.dispatch import MeshInfo
 from repro_torch.core.fabric import Fabric
 from repro_torch.data.pipeline import synth_batch
@@ -24,8 +24,10 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import route as troute
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
+from repro_torch.launch.train import reduced_batch
 from repro_torch.models.attention import flash_attend
 from repro_torch.models.model_zoo import build_model
+from repro_torch.models.transformer import padded_vocab
 
 
 def _batch(cfg, B=2, S=64):
@@ -57,9 +59,14 @@ def test_init_draws_on_the_generator_and_shares_weights_across_dtypes():
 
 
 def test_unported_families_and_devices_raise():
+    """The six families build on the device given; a family the reference
+    does not know raises, naming the known ones."""
     cfg = get_config("granite-8b").reduced()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    with pytest.raises(KeyError, match="unknown family 'retnet'"):
+        build_model(dataclasses.replace(cfg, family="retnet"), device="cpu")
+    for arch in ("rwkv6-7b", "zamba2-7b", "seamless-m4t-large-v2"):
+        m = build_model(get_config(arch).reduced(), device="cpu")
+        assert m.device == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
@@ -67,6 +74,89 @@ def test_unported_families_and_devices_raise():
         build_model(cfg, device="meta").init(torch.Generator())
     if torch.cuda.is_available():      # a card named with or without index
         build_model(cfg, device="cuda:0").init(torch.Generator("cuda"))
+
+
+# ---------------------------------------------------------------------------
+# every arch (the counterpart of tests/test_configs_smoke.py)
+# ---------------------------------------------------------------------------
+
+#: train_4k cut to batch 2, seq 64, as the reference's smoke test cuts it
+SMOKE_SHAPE = dataclasses.replace(TRAIN_4K, global_batch=2, seq_len=64)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_smoke_forward_and_train_step(arch):
+    """Reduced same-family config, weights from a generator, the full
+    config's ``synth_batch`` (tokens clipped to the reduced vocab, frames
+    and patches cut or repeated to its width): one forward (logits [2,
+    S, padded vocab], finite) and one train step (finite loss, the
+    parameters moved)."""
+    full = get_config(arch)
+    cfg = full.reduced()
+    model = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    batch = reduced_batch(full, cfg, SMOKE_SHAPE, 0, "cpu")
+    logits, aux = model.forward(batch)
+    assert logits.shape == (2, batch["tokens"].shape[1],
+                            padded_vocab(cfg.vocab_size))
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    opt = tsteps.default_optimizer()
+    step = tsteps.make_train_step(model, opt)
+    first = next(iter(model.paths()))
+    p0 = model.paths()[first].detach().clone()
+    params, _, metrics = step(model.paths(), opt.init(model.paths()), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert not torch.allclose(params[first].detach(), p0)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_full_config_dims_match_assignment(arch):
+    """The full configs carry the published dimensions (the reference's
+    table, ``tests/test_configs_smoke.py``)."""
+    cfg = get_config(arch)
+    expect = {
+        "mixtral-8x22b": (56, 6144, 48, 8, 16384, 32768),
+        "olmoe-1b-7b": (16, 2048, 16, 16, 1024, 50304),
+        "granite-8b": (36, 4096, 32, 8, 14336, 49152),
+        "h2o-danube-3-4b": (24, 3840, 32, 8, 10240, 32000),
+        "internlm2-1.8b": (24, 2048, 16, 8, 8192, 92544),
+        "qwen2-1.5b": (28, 1536, 12, 2, 8960, 151936),
+        "seamless-m4t-large-v2": (24, 1024, 16, 16, 8192, 256206),
+        "qwen2-vl-7b": (28, 3584, 28, 4, 18944, 152064),
+        "rwkv6-7b": (32, 4096, 0, 0, 14336, 65536),
+        "zamba2-7b": (81, 3584, 32, 32, 14336, 32000),
+    }[arch]
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size) == expect
+    extra = {
+        "mixtral-8x22b": lambda c: (c.moe.num_experts == 8
+                                    and c.moe.top_k == 2
+                                    and c.sliding_window > 0),
+        "olmoe-1b-7b": lambda c: c.moe.num_experts == 64 and c.moe.top_k == 8,
+        "zamba2-7b": lambda c: (c.ssm.state_dim == 64
+                                and c.resolved_head_dim == 112
+                                and c.hybrid_attn_period == 6),
+        "seamless-m4t-large-v2": lambda c: c.encoder_layers == 24,
+        "rwkv6-7b": lambda c: c.ssm.head_dim == 64 and c.attn_free,
+        "qwen2-vl-7b": lambda c: c.mrope and c.qkv_bias,
+        "qwen2-1.5b": lambda c: c.qkv_bias,
+    }.get(arch, lambda c: True)
+    assert extra(cfg)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b",
+                                  "seamless-m4t-large-v2"])
+def test_serve_and_train_clis_run_the_recurrent_families(arch, capsys):
+    """``launch/serve.py`` and ``launch/train.py`` on the reduced
+    recurrent, hybrid and encoder-decoder configs, on the CPU."""
+    from repro_torch.launch import train
+    tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "4", "--gen", "3"])
+    assert "generated (2, 3) on cpu" in capsys.readouterr().out
+    res = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--steps", "2", "--batch", "2", "--seq", "64"])
+    assert res.final_step == 2 and all(
+        np.isfinite(m["loss"]) for m in res.metrics_history)
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
@@ -181,6 +271,76 @@ def test_cuda_attention_takes_the_kernel_where_its_mask_is_the_layers(
         logits, _ = m.forward(_batch(m.cfg, S=seq))
     assert tflash.LAUNCHES["flash_attention"] == launches
     assert bool(torch.isfinite(logits).all())
+
+
+def _bf16_bound(L):
+    """bf16 logits of two runs that round at other points, as a share of
+    max|logit| (``chip_smoke.py``'s ``logit_bound``): ``2^-7 (1 + 2
+    sqrt(L))`` over the L layers the stream passes."""
+    return 2.0 ** -7 * (1 + 2 * L ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "blocked"),
+                                          (torch.bfloat16, "wgmma")])
+def test_cuda_zamba2_shared_block_runs_the_kernel_at_hd_112(
+        cuda_device, dtype, design):
+    """Reduced zamba2-7b at its head width 112 (a 224-byte TMA row,
+    padded to 128 on wgmma), 5 Mamba2 layers at period 2: the shared
+    block on the flash kernel, one causal launch an application (2) on
+    the design its type picks. float32: the logits within 1e-4 of
+    max|logit| of the torch path's. bf16: a Mamba2 stack with random
+    weights amplifies a rounding (its bf16 logits lie a tenth or more of
+    max|logit| from its float32 ones), so the kernel path's bf16 logits
+    are held to lie within the bf16 bound farther from the float32
+    forward's than the torch path's bf16 logits (``chip_smoke.py``'s
+    hold for them)."""
+    m = _model("zamba2-7b", cuda_device, dtype, head_dim=112, num_layers=5)
+    batch = _batch(m.cfg, S=256)
+    with torch.inference_mode():
+        tflash.reset_launches()
+        got, _ = m.forward(batch)
+        assert tflash.PATHS[design] == tflash.LAUNCHES["flash_attention"] == 2
+        want, _ = m.forward(batch, kernel=False)
+        f32 = build_model(m.cfg, device=cuda_device)
+        f32.load(m.tree())
+        ref, _ = f32.forward(batch, kernel=False)
+    assert tflash.LAUNCHES["flash_attention"] == 2
+    scale = float(ref.abs().max())
+    err_k, err_p = (float((t.float() - ref).abs().max()) / scale
+                    for t in (got, want))
+    if dtype == torch.float32:
+        assert err_k <= 1e-4
+    else:
+        assert err_k <= err_p + _bf16_bound(5 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "blocked"),
+                                          (torch.bfloat16, "wgmma")])
+def test_cuda_seamless_encoder_runs_the_kernel_non_causal(
+        cuda_device, dtype, design, monkeypatch):
+    """Reduced seamless-m4t-large-v2 at its head width 64: the encoder's
+    self-attention on the flash kernel without a mask (one launch a
+    layer), then the decoder's causal, all on the design the type picks;
+    the logits within 1e-4 (float32) or the bf16 bound of the torch
+    path's."""
+    from repro_torch.kernels import ops
+    m = _model("seamless-m4t-large-v2", cuda_device, dtype, head_dim=64)
+    masks = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, causal=True:
+                        masks.append(causal) or real(q, k, v, causal))
+    batch = _batch(m.cfg, S=512)
+    with torch.inference_mode():
+        tflash.reset_launches()
+        got, _ = m.forward(batch)
+        assert tflash.PATHS[design] == tflash.LAUNCHES["flash_attention"] == 4
+        want, _ = m.forward(batch, kernel=False)
+    assert masks == [False, False, True, True]
+    scale = float(want.float().abs().max())
+    bound = 1e-4 if dtype == torch.float32 else _bf16_bound(4)
+    assert float((got.float() - want.float()).abs().max()) <= bound * scale
 
 
 @pytest.mark.cuda

@@ -30,6 +30,8 @@ from hypothesis import given, settings, strategies as st
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import all_configs as j_all_configs
 from repro.configs import get_config as j_get_config
 from repro.configs import base as jbase
 from repro.data import pipeline as jpipe
@@ -38,7 +40,8 @@ from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import transformer as jtrans
 from repro.models.model_zoo import build_model as j_build_model
-from repro_torch.configs import PORTED, SHAPES, ShapeConfig, get_config
+from repro_torch.configs import (PORTED, SHAPES, ShapeConfig, all_configs,
+                                 get_config)
 from repro_torch.core import dispatch as tdispatch
 from repro_torch.core.dispatch import MeshInfo
 from repro_torch.core.fabric import Fabric
@@ -505,10 +508,14 @@ def test_synth_batch_matches_reference(family):
 
 
 def test_configs_and_shapes_match_reference():
-    assert set(PORTED) == set(DECODERS)
+    """All ten archs, full and reduced (rwkv6's ``num_heads`` 0 included:
+    ``resolved_head_dim`` falls back to d_model), and ``all_configs``."""
+    assert list(PORTED) == list(J_ARCH_IDS)
+    assert {k: dataclasses.asdict(v) for k, v in all_configs().items()} == {
+        k: dataclasses.asdict(v) for k, v in j_all_configs().items()}
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
-    for arch in DECODERS:
+    for arch in J_ARCH_IDS:
         got, want = get_config(arch), j_get_config(arch)
         for a, b in ((got, want), (got.reduced(), want.reduced())):
             assert dataclasses.asdict(a) == dataclasses.asdict(b)

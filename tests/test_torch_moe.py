@@ -81,10 +81,13 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_arch_ids_raise():
-    with pytest.raises(KeyError, match="queue 1, item 5b"):
-        get_config("rwkv6-7b")
+    """Every arch id the reference knows resolves (the recurrent one
+    too); an id it does not know raises, naming the known ones."""
+    assert get_config("rwkv6-7b").family == "ssm"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
+    with pytest.raises(KeyError, match="olmoe-1b-7b"):
+        get_config("olmoe")
 
 
 @pytest.mark.parametrize("factor", [1.25, 2.0, 8.0, 0.3])

@@ -12,7 +12,7 @@ by its tree path. Held to the reference:
   with clipping (the clip scale is a float32 norm that the two libraries
   sum in another order, a few ulps apart, and the moments carry it
   through the steps) and exact without;
-* one train step of the 7 reduced decoder configs at ``[2, 64]``: the
+* one train step of the 10 reduced configs at ``[2, 64]``: the
   loss within 1e-5 relative, every gradient leaf within 1e-4 of its
   max|g|, the moments as the gradients, and the new parameters (see
   :func:`_params_held`); ``accum_steps=2``; bf16 parameters' gradient and
@@ -20,7 +20,8 @@ by its tree path. Held to the reference:
 * 20 steps of reduced granite-8b against the reference's 20 losses
   (``tests/test_system.py::test_training_reduces_loss``).
 
-Also: remat ``none``/``block``/``dots`` give identical gradients, a train
+Also: remat ``none``/``block``/``dots`` give identical gradients (OLMoE
+and the hybrid's Mamba2 layers and shared block), a train
 step calls the flash glue zero times, and the ``launch/train.py`` CLI.
 """
 import dataclasses
@@ -42,12 +43,16 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.models import model_zoo as tzoo
 from repro_torch.models import transformer as ttrans
 from repro_torch.models.model_zoo import build_model, params_from_numpy
 from repro_torch.optim import adamw as tadamw
 
 DECODERS = ["granite-8b", "h2o-danube-3-4b", "internlm2-1.8b", "qwen2-1.5b",
             "qwen2-vl-7b", "mixtral-8x22b", "olmoe-1b-7b"]
+#: every arch: the decoders, then the recurrent, hybrid and
+#: encoder-decoder ones
+ARCHS = DECODERS + ["rwkv6-7b", "zamba2-7b", "seamless-m4t-large-v2"]
 U = 2.0 ** -24
 #: AdamW with clipping: values within this share of the leaf's max|x|
 ADAMW_REL = 16 * U
@@ -202,7 +207,7 @@ def _ref_step(jm, params, batch, opt):
     return step(params, _jbatch(batch))
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_reference(arch):
     """``make_train_step`` with ``default_optimizer()`` against the
     reference's ``value_and_grad(loss)`` + ``update`` from the same
@@ -313,28 +318,41 @@ def test_bf16_parameters_keep_the_reference_types(clip, accum):
 
 def test_remat_policies_give_identical_gradients(monkeypatch):
     """``remat`` none / block / dots on reduced OLMoE through the einsum
-    MoE: the same loss and gradients, bit for bit; ``block`` and ``dots``
-    run each block twice (forward, then its recompute in the backward
-    pass; ``dots`` takes the matrix products' outputs from the forward)."""
-    _, _, tm = _models("olmoe-1b-7b")
-    batch = _batch(tm.cfg, S=32)
-    calls = []
-    block = ttrans.decoder_block
-    monkeypatch.setattr(ttrans, "decoder_block",
-                        lambda *a, **k: calls.append(1) or block(*a, **k))
-    out = {}
-    for remat in ("none", "block", "dots"):
-        m = build_model(dataclasses.replace(tm.cfg, remat=remat),
-                        device="cpu")
-        m.load(tm.tree())
-        calls.clear()
-        out[remat] = tsteps.loss_and_grads(m, batch)
-        n = tm.cfg.num_layers
-        assert len(calls) == (n if remat == "none" else 2 * n), remat
-    for remat in ("block", "dots"):
-        assert torch.equal(out[remat][0]["loss"], out["none"][0]["loss"])
-        for k, g in out["none"][1].items():
-            assert torch.equal(out[remat][1][k], g), (remat, k)
+    MoE and on reduced zamba2 (``HybridLM``: two Mamba2 layers, one
+    application of the shared block): the same loss and gradients, bit
+    for bit; ``block`` and ``dots`` run each block twice (forward, then
+    its recompute in the backward pass; ``dots`` takes the matrix
+    products' outputs from the forward). The shared block is
+    rematerialised by a plain checkpoint under ``dots`` too, as the
+    reference's ``jax.checkpoint``."""
+    for arch, blocks in (("olmoe-1b-7b", [(ttrans, "decoder_block")]),
+                         ("zamba2-7b", [(tzoo, "decoder_block"),
+                                        (tzoo, "mamba_block")])):
+        _, _, tm = _models(arch)
+        batch = _batch(tm.cfg, S=32)
+        calls = {}
+        for module, name in blocks:
+            real = getattr(module, name)
+
+            def counted(*a, _name=name, _real=real, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _real(*a, **k)
+            monkeypatch.setattr(module, name, counted)
+        once = ({"decoder_block": tm.cfg.num_layers} if arch == "olmoe-1b-7b"
+                else {"mamba_block": tm.cfg.num_layers, "decoder_block": 1})
+        out = {}
+        for remat in ("none", "block", "dots"):
+            m = build_model(dataclasses.replace(tm.cfg, remat=remat),
+                            device="cpu")
+            m.load(tm.tree())
+            calls.clear()
+            out[remat] = tsteps.loss_and_grads(m, batch)
+            assert calls == {k: n if remat == "none" else 2 * n
+                             for k, n in once.items()}, (arch, remat)
+        for remat in ("block", "dots"):
+            assert torch.equal(out[remat][0]["loss"], out["none"][0]["loss"])
+            for k, g in out["none"][1].items():
+                assert torch.equal(out[remat][1][k], g), (arch, remat, k)
 
 
 def test_train_step_never_calls_the_flash_glue(monkeypatch):
