@@ -9,6 +9,7 @@
     python3 chip_smoke.py --lm                 # phase 16 alone (after the build)
     python3 chip_smoke.py --train              # phase 17 alone (after the build)
     python3 chip_smoke.py --recurrent          # phase 18 alone (after the build)
+    python3 chip_smoke.py --dryrun             # phase 19 alone (after the build)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -106,7 +107,8 @@ script exits non-zero with no result line:
    shards behind a ``ProgramServer`` of batch width 4 (a product graph
    of 4 * 2^20 vertices), 32 requests from 4 tenants, BFS and SSSP,
    roots from a seeded generator, served in lockstep, pipelined, with
-   donated buffers and in lockstep at inflight depth 3: pre-warm adds
+   donated buffers and in lockstep at inflight depth 3 (the four
+   servers share the first one's resident packing): pre-warm adds
    one key a class, no build and no drop under load,
    ``ServingStats.verify()``, each pass's peak card memory, the four
    passes equal response by response and 8 sampled responses bit-identical to
@@ -214,9 +216,32 @@ script exits non-zero with no result line:
    cut from 81 to 12 layers (two applications of the shared block, 1.37e9
    parameters), remat ``block``, 3 AdamW steps on [2, 4096]: every
    gradient leaf and loss finite, no flash launch; ms a step, tokens/s,
-   peak bytes.
+   peak bytes;
+19. the LM launch runtime (``repro_torch.launch.{mesh,sharding,analytic,
+   roofline,report,dryrun}``): (a) every arch x shape x {single, multi}
+   cell (the ten archs x train_4k, prefill_32k, decode_32k, long_500k
+   where ``shape_cells`` has it: 68 cells, 12 skips) built on the meta
+   device with its spec tables applied, on H100 figures; the report's
+   summary and the bottleneck counts by arch (the whole table into
+   ``build/dryrun_table.md``); (c) the four example scripts
+   (``examples/*_torch.py``) as subprocesses on the card at small
+   arguments, each exiting 0; (d) ``compress_psum`` over one axis of a
+   two-process 2 x 2 ``Fabric.distributed`` over gloo (``--psum-worker``
+   processes, the card in both), equal bit for bit to the one-process
+   virtual fabric's; then, alone on the card, (b) ``lower_cell(...,
+   measure=True)`` of granite-8b train_4k, prefill_32k, decode_32k and
+   OLMoE-1B-7B train_4k (through ``moe_dcra`` on phase 10's fused
+   packaging) at their published widths, depth, batch and cache cut to
+   ``dryrun.MEASURE_AT``: the step's ms by CUDA events, peak bytes, the
+   reduced cell's analytic compute and memory terms and their share of
+   the step, the flash and scatter launches; the prefill's flash kernel
+   held to its plain version on layer 0's q, k, v at S = 32768
+   (``long_flash_check``), and the
+   measured model's logits held within ``logit_bound`` of its torch
+   attention path (prefill), or no farther than ``logit_bound`` beyond
+   the plain sort route's from the float32 forward's (OLMoE).
 
-Each path of phases 4-7, 9-18 runs with every kernel's launch count set
+Each path of phases 4-7, 9-19 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -2780,6 +2805,9 @@ def run_server(device, totals):
     name = f"rmat{SERVE_SCALE}"
     reqs = serve_requests(g.n)
     passes = {}
+    # one resident packing of the product graph for the four servers (the
+    # same graph, fabric and seed): the first pre-warm packs it
+    resident = {}
     # the depth-3 pass shares the lockstep pass's keys: its pre-warm
     # adds none
     for tag, opts, so, n_new in [
@@ -2792,6 +2820,8 @@ def run_server(device, totals):
              ServeOptions(inflight_depth=3), 0)]:
         srv = ProgramServer(fab, {name: g}, batch_width=SERVE_WIDTH,
                             options=opts, serve_options=so)
+        shared = bool(resident)
+        srv._resident.update(resident)
         t0 = time.perf_counter()
         keys0 = set(program.cache_keys())
         warm = srv.prewarm(("bfs", "sssp"))
@@ -2802,9 +2832,11 @@ def run_server(device, totals):
                 or set().union(*map(set, warm.values())) != new):
             raise AssertionError(f"serve {tag}: pre-warm added {len(new)} "
                                  f"keys, by class {warm}")
+        resident = srv._resident
         log(f"serve {tag}: pre-warm {time.perf_counter() - t0:.2f} s (the "
-            f"resident packing included), {n_new} new key each for bfs "
-            f"and sssp")
+            f"resident packing "
+            f"{'shared from the first server' if shared else 'included'}), "
+            f"{n_new} new key each for bfs and sssp")
         passes[tag] = serve_pass(f"serve {tag}", srv, reqs, totals,
                                  SERVE_WIDTH)
         _, device_ms, wall_ms, top = profile_kernels(
@@ -2816,6 +2848,7 @@ def run_server(device, totals):
             + "; ".join(f"{op} {ms:.2f}" for op, ms in top) + f" [{SMI}]")
         srv.stats.verify()
         del srv
+    del resident
     base = [r.result for r in passes["lockstep"]]
     for tag in ("pipelined", "donated", "lockstep depth 3"):
         if not all(np.array_equal(a, r.result)
@@ -3580,6 +3613,96 @@ def lm_flash_check(tag, seen, want_shape):
         f"{err:.3e} vs the plain version, {ratio:.4f} of error_bound"
         + (f"; mean |err| {share:.4f} of the p-unrounded plain version's"
            if share is not None else "") + f" [{SMI}]")
+
+
+#: the shortest prefix :func:`long_flash_check` holds the share on (phases
+#: 11, 16, 18 hold it at S <= 4096)
+SHARE_S = 4096
+
+
+def plain_flash_f64(q, k, v, causal):
+    """:func:`plain_flash_attention`'s arithmetic in float64, p rounded to
+    v's type at the same running max and key tiles: the plain version
+    with its float32 sums made near exact."""
+    from repro_torch.kernels import flash_attention as flash
+    import torch
+    bh, s, hd = q.shape
+    qd, tk = q.double(), flash.TILE
+    m = torch.full((bh, s), flash.NEG_INF, dtype=torch.float64,
+                   device=q.device)
+    l = torch.zeros(bh, s, dtype=torch.float64, device=q.device)
+    acc = torch.zeros(bh, s, hd, dtype=torch.float64, device=q.device)
+    qi = torch.arange(s, device=q.device)[:, None]
+    for k0 in range(0, s, tk):
+        kt, vt = k[:, k0:k0 + tk].double(), v[:, k0:k0 + tk].double()
+        sc = torch.matmul(qd, kt.transpose(1, 2)) * hd ** -0.5
+        if causal:
+            kj = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None]
+            sc = torch.where(kj <= qi, sc, flash.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).double(),
+                                                    vt)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def long_flash_check(tag, seen, want_shape):
+    """The flash kernel on a long causal prefill's layer-0 q, k, v (a
+    :class:`FirstFlashInputs`' ``seen``): every element within
+    ``error_bound`` of the plain version at the full S; the p-rounding
+    share (``unrounded_share``'s ratio) held to :data:`P_ROUNDED_SHARE`
+    on the first :data:`SHARE_S` positions and each doubling up to S,
+    each reported beside the kernel's and the plain version's distance
+    to :func:`plain_flash_f64` rounded to the output's type (where a
+    kernel that summed exactly would lie): the rounding gap the share
+    divides by shrinks as the rows grow longer, so a kernel whose sums
+    drift shows it at long S first. A causal row's output depends on the
+    keys before it alone, so the first s rows of either full output are
+    that output on the first s positions."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v, causal = seen
+    if tuple(q.shape) != want_shape or not causal:
+        raise AssertionError(f"{tag}: the kernel got {tuple(q.shape)} "
+                             f"causal={causal}, want {want_shape} causal")
+    want = flash.plain_flash_attention(q, k, v, causal)
+    got = flash.flash_attention(q, k, v, causal)
+    err = (got.float() - want.float()).abs()
+    ratio = float((err / flash.error_bound(q, k, v, causal, want)).max())
+    if not ratio <= 1:
+        raise AssertionError(f"{tag}: flash_attention off by {ratio:.3f} x "
+                             f"its tolerance at {tuple(q.shape)}")
+    shares, s = [], SHARE_S
+    while s <= q.shape[1]:
+        w, g = want[:, :s].float(), got[:, :s].float()
+        u = flash.plain_flash_attention(q[:, :s], k[:, :s],
+                                        v[:, :s].float(), causal)
+        gap = float((u.float() - w).abs().mean())
+        exact = plain_flash_f64(q[:, :s], k[:, :s], v[:, :s],
+                                causal).to(q.dtype).float()
+        shares.append((s, float((g - w).abs().mean()) / gap,
+                       float((g - exact).abs().mean()) / gap,
+                       float((w - exact).abs().mean()) / gap))
+        del u, exact
+        s *= 2
+    over = [(n, a) for n, a, _, _ in shares if not a <= P_ROUNDED_SHARE]
+    if over:
+        raise AssertionError(f"{tag}: mean |err| as a share of the plain "
+                             f"version's with p unrounded (limit "
+                             f"{P_ROUNDED_SHARE}) at S: {over}")
+    log(f"lm {tag}: flash_attention at layer 0's q, k, v {tuple(q.shape)} "
+        f"{q.dtype} causal (design "
+        f"{flash.launch_plan(*q.shape, q.dtype).path}): max |err| "
+        f"{float(err.max()):.3e} vs the plain version, {ratio:.4f} of "
+        f"error_bound; mean |err| as a share of the p-unrounded plain "
+        f"version's, by prefix S (kernel vs plain; kernel vs the float64 "
+        f"sums; plain vs the float64 sums): "
+        + ", ".join(f"{n} {a:.4f}; {b:.4f}; {c:.4f}"
+                    for n, a, b, c in shares)
+        + f" (held: limit {P_ROUNDED_SHARE}) [{SMI}]")
 
 
 def lm_forwards(tag, model, batch, dtype, design, totals, masks=None,
@@ -4545,6 +4668,366 @@ def run_recurrent(device, totals):
         log(f"phase 18 {part.__name__}: {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the LM launch runtime and the analytic dry run
+# ---------------------------------------------------------------------------
+
+#: the cells run on the card at their published widths, each cut to its
+#: ``dryrun.MEASURE_AT`` entry: (arch, shape, kernels its path must
+#: launch, the route designs it may run)
+DRY_MEASURED = (
+    ("granite-8b", "train_4k", (), None),
+    ("granite-8b", "prefill_32k", ("flash_attention",), None),
+    ("granite-8b", "decode_32k", (), None),
+    ("olmoe-1b-7b", "train_4k", BUCKET_KERNELS, STAGED),
+)
+#: the example scripts and the small arguments phase 19 runs them at
+DRY_EXAMPLES = {
+    "train_lm_torch": ["--steps", "8", "--batch", "2", "--seq", "64",
+                       "--warmup", "2", "--lr", "3e-3"],
+    "serve_lm_torch": ["--batch", "2", "--prompt-len", "8", "--gen", "4"],
+    "quickstart_torch": [],
+    "serve_graph_torch": ["--requests", "8"],
+}
+DRY_WAIT = 240                     # seconds phase 19 waits for a subprocess
+PSUM_SHAPE, PSUM_AXES = (2, 2), ("data", "model")
+
+
+def psum_inputs(device):
+    """The per-shard gradients and residuals ``[4, 5, 3]`` of phase 19
+    (d), from a seeded numpy generator, on ``device``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    g = rng.standard_normal((4, 5, 3)).astype(np.float32)
+    r = (rng.standard_normal((4, 5, 3)) * 0.01).astype(np.float32)
+    return (torch.from_numpy(g).to(device), torch.from_numpy(r).to(device))
+
+
+def psum_worker(coord, pid, out_dir):
+    """``--psum-worker COORD PID DIR``: one process of phase 19 (d). Joins
+    the gloo group at ``COORD`` as process ``PID`` with a 2 x 2 ``("data",
+    "model")`` fabric on the card (``data`` crosses the processes),
+    ``compress_psum``s its rows of :func:`psum_inputs` over ``data`` and
+    writes the gathered mean and residuals into ``DIR/psum<PID>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.optim import compression as comp
+    device = torch.device(*CARD)
+    fab = Fabric.distributed(PSUM_SHAPE, PSUM_AXES, coordinator_address=coord,
+                             num_processes=2, process_id=int(pid),
+                             device=device, timeout=SCALE_OUT_PG_TIMEOUT)
+    g, r = (fab.local_rows(t) for t in psum_inputs(device))
+    out, ef = comp.compress_psum({"g": g}, comp.EFState({"g": r}), fab,
+                                 "data")
+    np.savez(Path(out_dir) / f"psum{pid}.npz",
+             mean=fab.gather_shards(out["g"]).cpu().numpy(),
+             residual=fab.gather_shards(ef.residual["g"]).cpu().numpy(),
+             dcn=np.array(fab.dcn_axes()))
+    dist.destroy_process_group()
+    return 0
+
+
+def start_subprocesses(out_dir):
+    """Phase 19's processes, all started at once: the four example scripts
+    on the card at :data:`DRY_EXAMPLES`' arguments and the two
+    ``--psum-worker`` processes. -> ``{name: (Popen, log path, host
+    clock at its start)}``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    coord = f"127.0.0.1:{free_port()}"
+    cmds = {name: [sys.executable, str(ROOT / "examples" / f"{name}.py")]
+            + args for name, args in DRY_EXAMPLES.items()}
+    for pid in range(2):
+        cmds[f"psum worker {pid}"] = [sys.executable,
+                                      str(Path(__file__).resolve()),
+                                      "--psum-worker", coord, str(pid),
+                                      str(out_dir)]
+    procs = {}
+    for name, cmd in cmds.items():
+        path = out_dir / (name.replace(" ", "_") + ".log")
+        with open(path, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT,
+                                            cwd=str(ROOT), env=env), path,
+                           time.perf_counter())
+    return procs
+
+
+def kill_subprocesses(procs):
+    for p, _, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def finish_subprocesses(procs):
+    """Wait for every process (at most :data:`DRY_WAIT` s from now), kill
+    what is left, and -> ``{name: (exit code, seconds from its start to
+    its end as seen here, log tail)}``."""
+    deadline = time.perf_counter() + DRY_WAIT
+    done = {}
+    try:
+        while len(done) < len(procs) and time.perf_counter() < deadline:
+            for name, (p, _, t0) in procs.items():
+                if name not in done and p.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        kill_subprocesses(procs)
+    return {name: (p.returncode, done.get(name), path.read_text()[-1500:])
+            for name, (p, path, _) in procs.items()}
+
+
+def dry_table(device):
+    """Phase 19 (a): every arch x shape x {single, multi} cell laid out on
+    meta with its specs on H100 figures; the report's summary, the
+    bottleneck counts, and the full table written to
+    ``build/dryrun_table.md``."""
+    from repro_torch.launch import dryrun, report
+    t0 = time.perf_counter()
+    results = dryrun.run_sweep(
+        dryrun.tasks_for(list(dryrun.ARCH_IDS), list(dryrun.SHAPE_NAMES),
+                         [False, True], verbose=False), out=None,
+        resume=False, raise_errors=True)
+    seconds = time.perf_counter() - t0
+    base = [r for r in results if "compute_s" in r]
+    skipped = [r for r in results if "skipped" in r]
+    if len(base) + len(skipped) != 80 or len(skipped) != 12:
+        raise AssertionError(f"dry run: {len(base)} cells, {len(skipped)} "
+                             f"skips of 80")
+    if any(r["collective_s"] is not None or r["argument_size_in_bytes"] <= 0
+           for r in base):
+        raise AssertionError("dry run: a cell with a collective term or no "
+                             "argument bytes")
+    by_arch = {}
+    for r in base:
+        by_arch.setdefault(r["arch"], {}).setdefault(r["bottleneck"], 0)
+        by_arch[r["arch"]][r["bottleneck"]] += 1
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "dryrun_table.md").write_text(
+        report.summary(results) + "\n\n" + report.roofline_table(results)
+        + "\n")
+    biggest = max(base, key=lambda r: r["argument_size_in_bytes"])
+    log(f"dry run (meta device, H100 bf16 989e12 FLOP/s, HBM 3.35e12 B/s): "
+        f"{report.summary(results)}; by arch {by_arch}; {seconds:.2f} s; "
+        f"largest inputs a shard {biggest['argument_size_in_bytes']} B "
+        f"({biggest['arch']} {biggest['shape']} {biggest['mesh']}); the "
+        f"table in build/dryrun_table.md")
+    return results
+
+
+class KeepModel:
+    """Within: the last model ``launch/dryrun.py`` builds off the meta
+    device (a measured cell's) in ``self.model``."""
+
+    def __enter__(self):
+        from repro_torch.launch import dryrun
+        self.mod, self.real, self.model = dryrun, dryrun.build_model, None
+
+        def keep(*args, **kw):
+            model = self.real(*args, **kw)
+            if str(kw.get("device")) != "meta":
+                self.model = model
+            return model
+        dryrun.build_model = keep
+        return self
+
+    def __exit__(self, *_):
+        self.mod.build_model = self.real
+        return False
+
+
+def dry_held(tag, model, shape_name, m, device):
+    """The measured model's logits on its step's batch, held to its plain
+    path: the prefill's within :func:`logit_bound` of its torch attention
+    path's (``kernel=False``); a MoE model's training forward
+    (``kernel=False``) on ``moe_dcra``'s kernel route no farther from the
+    float32 forward's (same weights, the plain sort route) than the bf16
+    forward on the plain sort route, plus :func:`logit_bound` (as
+    :func:`lm_forwards` holds a bf16 stack that amplifies a reordered
+    sum), the kernel route's distance to a second run of itself
+    reported; ``None`` where the step runs no kernel."""
+    import dataclasses
+    import torch
+    from repro_torch.core.dispatch import dispatch_queues
+    from repro_torch.launch.train import reduced_batch
+    from repro_torch.models.model_zoo import build_model
+    cfg = model.cfg
+    if shape_name != "prefill_32k" and cfg.moe is None:
+        return None
+    shape = {s.name: s for s in cfg.shape_cells()}[shape_name]
+    shape = dataclasses.replace(shape, global_batch=m["batch"],
+                                seq_len=m["seq"])
+    batch = reduced_batch(cfg, cfg, shape, 0, device)
+    bound = logit_bound(cfg, torch.bfloat16, m["seq"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if cfg.moe is None:
+            got, _ = model.forward(batch)
+            want, _ = model.forward(batch, kernel=False)
+            torch.cuda.synchronize()
+            err, share = logits_held(f"{tag} vs the torch attention path",
+                                     got, want, bound)
+            return (f"logits {tuple(got.shape)} {got.dtype} within "
+                    f"{err:.4e} = {share:.4e} of max|logit| of the torch "
+                    f"attention path's (bound {bound:.4e}; "
+                    f"{time.perf_counter() - t0:.2f} s)")
+        got, _ = model.forward(batch, kernel=False)
+        again, _ = model.forward(batch, kernel=False)
+        sort_q = dataclasses.replace(dispatch_queues(cfg.moe),
+                                     route_impl="sort")
+        with RoutingSpy(model.mesh_info, (m["batch"], m["seq"]), 0, sort_q):
+            want, _ = model.forward(batch, kernel=False)
+            f32 = build_model(cfg, mesh_info=model.mesh_info,
+                              dtype=torch.float32, device=model.device)
+            f32.load(model.tree())
+            ref, _ = f32.forward(batch, kernel=False)
+            del f32
+        torch.cuda.synchronize()
+    ref = ref.float()
+    scale = float(ref.abs().max())
+    e_k, e_p = (float((t.float() - ref).abs().max()) / scale
+                for t in (got, want))
+    apart, rerun = (float((got.float() - t.float()).abs().max()) / scale
+                    for t in (want, again))
+    if not (e_k <= e_p + bound and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{tag}: the kernel route's logits {e_k:.4e} of "
+                             f"max|logit| from the float32 forward's, the "
+                             f"sort route's {e_p:.4e}; bound {bound:.4e} "
+                             f"more")
+    return (f"logits {tuple(got.shape)} {got.dtype}: from the float32 "
+            f"forward's (sort route) kernel route {e_k:.4e}, sort route "
+            f"{e_p:.4e} of max|logit| (held: kernel <= sort + {bound:.4e}); "
+            f"kernel vs sort route {apart:.4e}, kernel route run twice "
+            f"{rerun:.4e}, reported "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+
+def dry_measured(device, totals):
+    """Phase 19 (b): :data:`DRY_MEASURED` through ``lower_cell(...,
+    measure=True)`` on the card at ``dryrun.MEASURE_AT``'s cuts, each on a
+    path of its own; then, off the path, the prefill's flash kernel on
+    layer 0's q, k, v against its plain version, and :func:`dry_held`."""
+    import torch
+    from repro_torch.launch import dryrun
+    recs = []
+    for arch, shape, need, designs in DRY_MEASURED:
+        torch.cuda.empty_cache()
+        tag = f"dry run {arch} {shape}"
+        with MainPath(tag, need, totals, designs) as path:
+            with KeepModel() as kept, FirstFlashInputs() as first:
+                rec = dryrun.lower_cell(arch, shape, False, measure=True,
+                                        device=device, verbose=False)
+        m = rec["measured"]
+        if m["timer"] != "cuda events" or not m["step_ms"] > 0:
+            raise AssertionError(f"{tag}: not timed on the card ({m})")
+        log(f"{tag}: {m['step_ms']:.4f} ms a step (CUDA events), peak "
+            f"{m['peak_bytes']} B; cut: {', '.join(m['reduced'])}; the "
+            f"reduced cell's analytic terms compute {m['compute_s']:.4e} s, "
+            f"memory {m['memory_s']:.4e} s = {m['compute_share']:.4f} / "
+            f"{m['memory_share']:.4f} of the measured step; full cell on "
+            f"{rec['chips']} chips: compute {rec['compute_s']:.4e} s, memory "
+            f"{rec['memory_s']:.4e} s, {rec['bottleneck']}-bound, inputs "
+            f"{rec['argument_size_in_bytes']} B a shard; launches in the "
+            f"timed step: flash {m['launches']['flash_attention']}, scatter "
+            f"{m['launches']['bucket_scatter']}; on the path (warm-up "
+            f"included) {path.launches} [{SMI}]")
+        model = kept.model
+        if first.seen is not None:
+            cfg = model.cfg
+            long_flash_check(tag, first.seen, (m["batch"] * cfg.num_heads,
+                                               m["seq"],
+                                               cfg.resolved_head_dim))
+        first.seen = first.by_mask = None
+        held = dry_held(tag, model, shape, m, device)
+        if held:
+            log(f"{tag}: the measured model's {held} [{SMI}]")
+        del model, kept.model
+        recs.append(rec)
+    return recs
+
+
+def dry_subprocesses(procs, device):
+    """Phase 19 (c) and (d): the example scripts' exit codes and seconds;
+    the two workers' ``compress_psum`` against the one-process virtual
+    fabric's, bit for bit."""
+    import numpy as np
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.optim import compression as comp
+    res = finish_subprocesses(procs)
+    bad = {k: v for k, v in res.items() if v[0] != 0}
+    if bad:
+        raise AssertionError("phase 19 subprocesses failed: " + "\n".join(
+            f"--- {k} (rc {rc}):\n{tail}" for k, (rc, _, tail) in bad.items()))
+    for name in DRY_EXAMPLES:
+        rc, secs, tail = res[name]
+        last = [ln for ln in tail.splitlines() if ln.strip()][-1:]
+        log(f"example {name} {' '.join(DRY_EXAMPLES[name])}: exit {rc}, "
+            f"done {secs:.2f} s after its start (seen once phase 19 (a) "
+            f"ended); last line: "
+            f"{last[0][:160] if last else ''}")
+    fab = Fabric.virtual(PSUM_SHAPE, PSUM_AXES, device=device)
+    g, r = psum_inputs(device)
+    out, ef = comp.compress_psum({"g": g}, comp.EFState({"g": r}), fab,
+                                 "data")
+    want = (out["g"].cpu().numpy(), ef.residual["g"].cpu().numpy())
+    out_dir = procs["psum worker 0"][1].parent
+    for pid in range(2):
+        got = np.load(out_dir / f"psum{pid}.npz")
+        if (list(got["dcn"]) != ["data"]
+                or not np.array_equal(got["mean"], want[0])
+                or not np.array_equal(got["residual"], want[1])):
+            raise AssertionError(f"compress_psum across processes: worker "
+                                 f"{pid} differs from the virtual fabric")
+    log(f"compress_psum over 'data' of a two-process 2x2 Fabric.distributed "
+        f"(gloo, the card in both): equal bit for bit to the one-process "
+        f"virtual fabric's mean and residuals (max |mean| "
+        f"{float(np.abs(want[0]).max()):.4f}) [{SMI}]")
+
+
+def run_dry(device, totals):
+    """Phase 19: the subprocesses (examples, psum workers) started first
+    and (a) the dry-run table built on meta while they run; then their
+    results (c), (d); then (b) the measured cells, alone on the card."""
+    import tempfile
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        procs = start_subprocesses(Path(tmp))
+        try:
+            dry_table(device)
+        except BaseException:
+            kill_subprocesses(procs)
+            raise
+        dry_subprocesses(procs, device)
+    dry_measured(device, totals)
+
+
+def dry_only():
+    """``--dryrun``: the build and phase 19 alone; its launch counts are
+    printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_dry(torch.device(*CARD), totals)
+    phase("19 (launch runtime, dry run)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
 def scale_out_only():
     """``--scale-out``: the build, RMAT-22 and its packing (phase 2) and
     phase 15 alone; its launch counts are printed, no kernel table."""
@@ -4735,8 +5218,12 @@ def main() -> int:
         return train_only()
     if sys.argv[1:2] == ["--recurrent"]:
         return recurrent_only()
+    if sys.argv[1:2] == ["--dryrun"]:
+        return dry_only()
     if sys.argv[1:2] == ["--scale-out-worker"]:
         return scale_out_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--psum-worker"]:
+        return psum_worker(*sys.argv[2:5])
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import routing
@@ -4873,6 +5360,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_recurrent(device, totals)
     t0 = phase("18 (recurrent, hybrid, encoder-decoder LMs)", t0)
+
+    # ---- 19: the LM launch runtime and the analytic dry run ---------------
+    torch.cuda.empty_cache()
+    run_dry(device, totals)
+    t0 = phase("19 (launch runtime, dry run, examples)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

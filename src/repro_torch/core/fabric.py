@@ -414,12 +414,41 @@ class Fabric:
                                                         *gathered)
 
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
-        """Sum of ``x [S, ...]`` over the peers along ``axes``, on each."""
+        """Sum of ``x [S, ...]`` over the peers along ``axes``, on each.
+        On a distributed fabric ``x`` is this process's rows ``[L, ...]``:
+        over every axis it is :meth:`gsum`; otherwise the axes this
+        process holds whole are summed here, and only where ``axes``
+        also cross processes are the partial sums gathered (one gloo
+        ``all_gather``) and summed over the rest. Over the axes of one
+        kind the values are the virtual fabric's bit for bit; over both
+        the local sums come first."""
         dims = self.axis_dims(axes)
         if not dims:
             return x
-        y = x.reshape(*self.shape, *x.shape[1:])
-        return y.sum(dim=dims, keepdim=True).expand_as(y).reshape(x.shape)
+        if not self.is_multiprocess:
+            y = x.reshape(*self.shape, *x.shape[1:])
+            return y.sum(dim=dims, keepdim=True).expand_as(y).reshape(x.shape)
+        if len(dims) == len(self.shape):
+            return self.gsum(x)
+        # a process holds a row-major block of rows: whole trailing axes
+        # t.. under a part of the leading ones
+        t = next(i for i in range(len(self.shape) + 1)
+                 if self.n_local_shards % math.prod(self.shape[i:]) == 0)
+        inner, rest = self.shape[t:], x.shape[1:]
+        y = x.reshape(-1, *inner, *rest)
+        local = tuple(1 + d - t for d in dims if d >= t)
+        if local:
+            y = y.sum(dim=local, keepdim=True)
+        cross = tuple(d for d in dims if d < t)
+        if cross:
+            lead = self.n_local_shards // math.prod(inner)
+            full = self.gather_shards(y)
+            full = full.reshape(*self.shape[:t], *full.shape[1:])
+            full = full.sum(dim=cross, keepdim=True).expand_as(full)
+            y = full.reshape(-1, *full.shape[t:])
+            lo = self.process_index * lead
+            y = y[lo:lo + lead]
+        return y.expand(-1, *inner, *rest).reshape(x.shape)
 
     def shard_slice(self, x: torch.Tensor, axes: Axes, dim: int
                     ) -> torch.Tensor:

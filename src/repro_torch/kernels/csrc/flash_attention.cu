@@ -43,8 +43,12 @@
 //    an SS m64n64k16 wgmma (both K-major) into f32 registers; mask and
 //    online softmax run on that fragment, a row's four lanes combining by
 //    shuffles, each exponent one FMA and one ex2; p, rounded to bf16, is
-//    already in the A-operand register layout, and o += p v is an RS
-//    m64nHDPk16 wgmma (v MN-major, the transpose bit). A key tile wholly
+//    already in the A-operand register layout, and each 64-column half
+//    of p v is an RS m64n64k16 wgmma (v MN-major, the transpose bit) into
+//    a fresh fragment, folded into o by a float32 FMA: accumulating into o
+//    inside the tensor cores drifted from the exact sums as S grew (on an
+//    H100 at S 32768: a mean error 0.2 of the p-rounding gap, against the
+//    plain version's float32 sums at 0.009). A key tile wholly
 //    above a warpgroup's rows, or any tile of a warpgroup whose rows all
 //    lie past S, is only released (the mask would leave m, l and o
 //    unchanged exactly). setmaxnreg gives the consumers 160 registers and
@@ -506,21 +510,19 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* q,
   sm90::wgmma_commit();
 }
 
-// o += p v for one key tile: 4 RS wgmmas (v MN-major), one group
-template <int HDP>
-__device__ __forceinline__ void issue_pv(float (&acc)[HDP / 2],
-                                         uint32_t (&p)[4][4],
-                                         const uint8_t* vt) {
+// p v for one key tile and one 64-column half of v (vh: that half's box):
+// 4 RS m64n64k16 wgmmas (v MN-major) into a fresh fragment, one group
+__device__ __forceinline__ void issue_pv_half(float (&pv)[32],
+                                              uint32_t (&p)[4][4],
+                                              const uint8_t* vh) {
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t dv = sm90::desc_sw128(vt + 16 * sm90::kSwizzleBytes * kk,
-                                         kBox, sm90::kAtomBytes);
-    if constexpr (HDP == 128)
-      sm90::wgmma_m64n128k16_rs<1>(acc, p[kk], dv, 1);
-    else
-      sm90::wgmma_m64n64k16_rs<1>(acc, p[kk], dv, 1);
-  }
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_m64n64k16_rs<1>(
+        pv, p[kk],
+        sm90::desc_sw128(vh + 16 * sm90::kSwizzleBytes * kk, kBox,
+                         sm90::kAtomBytes),
+        kk > 0);
   sm90::wgmma_commit();
 }
 
@@ -671,11 +673,22 @@ __global__ void __launch_bounds__(kWThreads, 1)
         sm.step(sc, p, alpha0, alpha1, k0,
                 (causal && k0 + 63 > row_first) || k0 + 64 > s_len, qi0, col,
                 s_len, causal, scale);
+        // o = o alpha + p v, a 64-column half at a time: the tile's p v
+        // in a fresh fragment, folded into o by a float32 FMA (the tensor
+        // cores' own accumulation does not round to nearest, and over S / 64
+        // tiles its error would grow with S); half h is o's elements
+        // 32 h .. 32 h + 31
 #pragma unroll
-        for (int i = 0; i < kN; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
-        issue_pv<HDP>(acc, p, v_tiles + s * Tile::kKvBytes);
-        sm90::wgmma_wait<0>();
-        sm90::fence_regs(acc);
+        for (int h = 0; h < Tile::kBoxes; ++h) {
+          float pv[32];
+          issue_pv_half(pv, p, v_tiles + s * Tile::kKvBytes + h * kBox);
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(pv);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            acc[32 * h + i] = fmaf(acc[32 * h + i],
+                                   (i & 2) ? alpha1 : alpha0, pv[i]);
+        }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(p[kk]);
       }

@@ -5,10 +5,10 @@ The model holds its parameters (:class:`~repro_torch.models.transformer.
 ParamTree`), so a step takes the training state as the mapping of its
 parameters by tree path (:meth:`ParamTree.paths`) and the optimiser's
 state, and writes the parameters in place. The reference's
-logical-sharding rules are not ported: on one card every annotation is
-the identity, so the train step's ``mesh_info`` and ``shape`` are
-accepted for the reference's signature and only checked, and the serve
-and prefill steps take the model alone.
+logical-sharding rules (:mod:`repro_torch.launch.sharding`) are computed
+and checked, not applied: on one card every annotation is the identity,
+so the train step's ``mesh_info`` and ``shape`` are checked only, and
+the serve and prefill steps take the model alone.
 
 A training forward takes the torch attention path (``kernel=False``):
 the flash kernel has no backward. Serving and prefill run without a
@@ -21,8 +21,10 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from ..configs.base import ShapeConfig
+from ..core.fabric import Fabric
 from ..models.model_zoo import BaseModel
 from ..optim.adamw import AdamW, AdamWState, cosine_schedule
+from .sharding import logical_rules
 
 
 def default_optimizer() -> AdamW:
@@ -69,6 +71,29 @@ def loss_and_grads(model: BaseModel, batch, accum_steps: int = 1
     return metrics, {k: a / accum_steps for k, a in zip(names, acc)}
 
 
+def check_shape(model: BaseModel, shape: ShapeConfig, fabric: Fabric,
+                accum_steps: int = 1) -> Dict[str, object]:
+    """The reference's logical rules of ``shape`` on ``fabric``
+    (:func:`~repro_torch.launch.sharding.logical_rules`), once ``shape``
+    is checked against them: a training shape whose batch splits into
+    ``accum_steps`` micro-batches and over the rules' batch axes, and
+    whose sequence splits over their sequence axes."""
+    if shape.kind != "train":
+        raise ValueError(f"a train step of a {shape.kind!r} shape")
+    if shape.global_batch % accum_steps:
+        raise ValueError(f"{shape.name}: the batch {shape.global_batch} "
+                         f"does not split into {accum_steps} micro-batches")
+    rules = logical_rules(model.cfg, fabric, shape)
+    for what, size, axes in (
+            ("batch", shape.global_batch, rules["act_batch"]),
+            ("sequence", shape.seq_len, rules["act_seq"])):
+        if size % fabric.axis_size(axes):
+            raise ValueError(f"{shape.name}: the {what} {size} does not "
+                             f"split over {axes} "
+                             f"({fabric.axis_size(axes)} shards)")
+    return rules
+
+
 def make_train_step(model: BaseModel, opt: AdamW, mesh_info=None,
                     shape: Optional[ShapeConfig] = None,
                     accum_steps: int = 1):
@@ -76,11 +101,19 @@ def make_train_step(model: BaseModel, opt: AdamW, mesh_info=None,
     metrics)``. ``params`` is
     :meth:`ParamTree.paths`' mapping: the model's own tensors, or tensors
     of the same paths (a restored checkpoint), which are copied into the
-    model first; the step returns the model's own."""
+    model first; the step returns the model's own.
+
+    ``shape`` is checked by :func:`check_shape` against the logical rules
+    on the ``mesh_info``'s fabric (else one shard); the step applies
+    none (on one card every sharding annotation is the identity)."""
     if mesh_info is not None and mesh_info != model.mesh_info:
         raise ValueError("mesh_info differs from the model's: the model "
                          "routes its MoE layers by its own")
-    del shape                   # no logical-sharding rules on one card
+    if shape is not None:
+        check_shape(model, shape,
+                    mesh_info.mesh if mesh_info is not None else
+                    Fabric.virtual((1, 1), ("data", "model"),
+                                   device=model.device), accum_steps)
 
     def train_step(params: Mapping[str, torch.Tensor], opt_state: AdamWState,
                    batch):

@@ -119,18 +119,33 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # Init helpers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when a model is built on the
+    meta device (``model.init(MetaGenerator())``): every initialiser
+    gives a tensor of its shape and type with no storage and draws
+    nothing, the counterpart of ``jax.eval_shape(model.init, key)``."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:
+    """Standard normal draws of ``shape`` from ``gen`` on its device; on a
+    :class:`MetaGenerator`, the meta tensor of that shape."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    return torch.randn(tuple(shape), generator=gen, dtype=dtype,
+                       device=gen.device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_shape: Sequence[int],
                scale: float = 1.0, dtype=torch.float32) -> torch.Tensor:
     """``[in_dim, *out_shape]`` normal with std ``scale / sqrt(in_dim)``,
     on the generator's device."""
     shape = (in_dim,) + tuple(out_shape)
     std = scale / (in_dim ** 0.5)
-    return torch.randn(shape, generator=gen, dtype=dtype,
-                       device=gen.device) * std
+    return randn(gen, shape, dtype) * std
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.float32) -> torch.Tensor:
     """``[vocab, dim]`` normal with std 0.02, on the generator's device."""
-    return torch.randn((vocab, dim), generator=gen, dtype=dtype,
-                       device=gen.device) * 0.02
+    return randn(gen, (vocab, dim), dtype) * 0.02

@@ -28,7 +28,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from .common import dense_init
+from .common import dense_init, randn
 
 
 class MambaState(NamedTuple):
@@ -52,8 +52,7 @@ def init_mamba_block(gen: torch.Generator, cfg: ArchConfig
     return {
         # in_proj -> [z (gate), xBC, dt]
         "w_in": dense_init(gen, d, (d_in + conv_dim + H,)),
-        "conv_w": torch.randn((W, conv_dim), generator=gen,
-                              device=dev) * (W ** -0.5),
+        "conv_w": randn(gen, (W, conv_dim)) * (W ** -0.5),
         "conv_b": torch.zeros((conv_dim,), device=dev),
         "dt_bias": torch.full((H,), -2.0, device=dev),
         "A_log": torch.zeros((H,), device=dev),        # A = -exp(A_log)

@@ -26,7 +26,7 @@ import torch
 
 from ..configs.base import ArchConfig, MoEConfig
 from ..core.fabric import resolve_device
-from .common import dense_init, swiglu
+from .common import dense_init, randn, swiglu
 
 GROUP_SIZE = 1024  # tokens per dispatch group (DCRA: per-tile task batch)
 
@@ -47,8 +47,7 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
 
 
 def _expert_init(gen, e, din, dout):
-    return torch.randn((e, din, dout), generator=gen,
-                       device=gen.device) * (din ** -0.5)
+    return randn(gen, (e, din, dout)) * (din ** -0.5)
 
 
 def moe_params_from_numpy(params: Mapping[str, np.ndarray], device=None

@@ -9,13 +9,14 @@ It is the data-parallel hook of :class:`repro_torch.optim.adamw.AdamW`.
 The reference runs :func:`compress_psum` inside ``shard_map``; here a
 gradient leaf is the stacked per-shard values ``[S, ...]`` of a
 :class:`~repro_torch.core.fabric.Fabric` (``[L, ...]``, this process's
-shards, on a distributed one), and the sums are the fabric's: over the
-named axes with :meth:`Fabric.psum`, or over every shard with
-:meth:`Fabric.gsum`, which also crosses processes.
+shards, on a distributed one), and the sums over the named axes are the
+fabric's :meth:`Fabric.psum`, which on a distributed fabric gathers
+every process's shards and sums them as the virtual fabric does: the
+same values, bit for bit, over one process or several.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple, Sequence, Tuple, Union
+from typing import Any, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -49,18 +50,6 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def _fabric_sum(fab: Fabric, x: torch.Tensor,
-                axes: Union[str, Sequence[str]]) -> torch.Tensor:
-    """The sum of per-shard ``x`` over ``axes``, handed to each shard."""
-    if len(fab.axis_dims(axes)) == len(fab.shape):
-        return fab.gsum(x)
-    if fab.is_multiprocess:
-        raise NotImplementedError(
-            "compress_psum over some of a distributed fabric's axes: only "
-            "the sum over all of them crosses processes")
-    return fab.psum(x, axes)
-
-
 def compress_psum(grads: Mapping[str, torch.Tensor], ef: EFState,
                   fabric: Fabric, axis_names) -> Tuple[dict, EFState]:
     """Per leaf: quantize(grad + residual) a shard -> sum (int) over
@@ -74,8 +63,8 @@ def compress_psum(grads: Mapping[str, torch.Tensor], ef: EFState,
         q, scale = _quantize(g32, tuple(range(1, g32.dim())))
         # int8 payloads summed as integers (exact for up to 2^23
         # participants); the scales averaged, as the reference does
-        qsum = _fabric_sum(fabric, q.to(torch.int32), axis_names)
-        ssum = _fabric_sum(fabric, scale, axis_names)
+        qsum = fabric.psum(q.to(torch.int32), axis_names)
+        ssum = fabric.psum(scale, axis_names)
         mean = qsum.to(torch.float32) * (ssum / n) / n
         res[k] = g32 - dequantize(q, scale)
         out[k] = mean.to(g.dtype)

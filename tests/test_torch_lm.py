@@ -413,3 +413,22 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,flash", [("train_4k", 0), ("prefill_32k", 2),
+                                         ("decode_32k", 0)])
+def test_cuda_dryrun_measures_a_cell_on_the_card(cuda_device, shape, flash):
+    """``lower_cell(..., measure=True)`` on the card: CUDA events, the
+    card's peak bytes and name, the flash kernel in every attention layer
+    of the prefill (2 layers), none in training or decode."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.lower_cell("granite-8b", shape, False, reduced=True,
+                            measure=True, device=cuda_device, verbose=False,
+                            measure_at={"layers": 2, "batch": 1, "seq": 256})
+    m = rec["measured"]
+    assert set(m) == set(dryrun.MEASURED_KEYS)
+    assert m["timer"] == "cuda events" and m["step_ms"] > 0
+    assert m["peak_bytes"] > 0 and m["device_name"] == \
+        torch.cuda.get_device_name(cuda_device)
+    assert m["compute_share"] > 0 and m["launches"]["flash_attention"] == flash
