@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train              # phase 17 alone (after the build)
     python3 chip_smoke.py --recurrent          # phase 18 alone (after the build)
     python3 chip_smoke.py --dryrun             # phase 19 alone (after the build)
+    python3 chip_smoke.py --serve-out          # phase 20 alone (after the build)
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -55,7 +56,11 @@ script exits non-zero with no result line:
    path, and within 1e-4 of both relative to the largest rank;
 6. SpMV on RMAT-22, flat 64 and pod/portal 8 x 8: every row within its
    float32 error bound of the oracle and of the plain-torch path, and
-   within 1e-4 of both relative to the largest |y|;
+   within 1e-4 of both relative to the largest |y|. The numpy work of
+   phases 5 and 6 (the two oracles, SpMV's bounds and one build of its
+   task stream, which the plain-torch runs route) runs in a process of
+   its own (``--host-oracles``) while the card runs phases 2-5, and
+   then phase 12's packing onto one shard;
 7. histogram of 2^28 elements over 4096 bins: one shard (the histogram
    kernel's local reduce), flat 64 and pod/portal 8 x 8, equal to the
    oracle;
@@ -134,14 +139,16 @@ script exits non-zero with no result line:
    ``--scale-out-worker``, started after the build, so no worker runs
    ``nvcc``) share the card (``cuda:0`` in both) as one
    ``Fabric.distributed`` over gloo on 127.0.0.1, the crossing half of
-   every exchange staged through pinned host memory. Each builds its
-   inputs from the seed and runs, in order: BFS on RMAT-22 from phase
+   every exchange staged through pinned host memory. Each loads RMAT-22
+   and its packing onto 64 shards that the parent wrote (building them
+   took each worker 62 s), builds the rest of its inputs from the seed
+   and runs, in order: BFS on RMAT-22 from phase
    4's root, flat 64 (32 shards a process, factor 4) in lockstep and
    pipelined, pod 8 x 8 (four pods a process: only the portal stage
    crosses, factor 2) in lockstep; SSSP, WCC, k-core (k 12) and
    PageRank (20 rounds) on RMAT-18, flat 8 and pod 2 x 4; the routed
-   histogram of ``histogram_data(2^24, 4096, seed=1)`` on flat 8; BFS
-   flat 64 once more. Each run equal to the one-process run of its
+   histogram of ``histogram_data(2^24, 4096, seed=1)`` on flat 8. Each
+   run equal to the one-process run of its
    shape on the same card (states bit for bit, PageRank within twice
    its float32 bound; rounds, message and drop streams), no drop, the
    scatter ``staged`` and the reduce on the one-process run's design in
@@ -239,9 +246,36 @@ script exits non-zero with no result line:
    (``long_flash_check``), and the
    measured model's logits held within ``logit_bound`` of its torch
    attention path (prefill), or no farther than ``logit_bound`` beyond
-   the plain sort route's from the float32 forward's (OLMoE).
+   the plain sort route's from the float32 forward's (OLMoE);
+20. the serving tier and the MoE layer on a distributed fabric: two
+   worker processes (``--serve-out-worker``, started after the build)
+   share the card as one ``Fabric.distributed`` ``("portal", "data")``
+   (2, 32) over gloo, one pod a process. Here first, the one-process
+   server of phase 13 on the same (2, 32) shape, from phase 13's resident
+   packing. In the workers: (a)
+   phase 13's server (RMAT-20, batch width 4, the first 16 of its 32
+   requests: all 32 took 125 s a pass, lockstep) across the two
+   processes, every response
+   bit-identical to phase 13's, rounds, messages and drops equal to the
+   one-process server's, no build under load and no drop, the scatter
+   ``staged`` and the reduce ``atomic`` in each, both workers'
+   responses equal; requests/s beside phase 13's and the gloo seconds a
+   launch; (b) the same stream with a host loss at launch 2 keeping 32
+   shards (16 a process), from (a)'s warm classes and resident packing,
+   every request served equal to (a); (c) one
+   dispatch of OLMoE-1B-7B's MoE layer through a server's ``MoEService``
+   lane on phase 10's two-stage packaging with one pod a process (the
+   portal stage crosses), x [8, 2048, 2048] at factor 1.25, within 1e-5
+   of max|out| of ``moe_dcra`` on the virtual packaging, the lane's own
+   dispatch's drops per bucket equal to the virtual packaging's, the
+   scatter launches; (d) one gradient of that layer on
+   x [2, 2048, 2048] with phase 10's no-drop queues, loss ``sum(out *
+   r) + aux``: the loss and every leaf (four weights, x) within 1e-5 of
+   its max|g| of the one-process run, both processes' weight gradients
+   identical. A failing worker, or a peer that times out, fails the
+   phase.
 
-Each path of phases 4-7, 9-19 runs with every kernel's launch count set
+Each path of phases 4-7, 9-20 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -259,6 +293,7 @@ exits with code 2.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -270,6 +305,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CHILDREN = []                      # processes started here, stopped at exit
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
@@ -1419,6 +1455,105 @@ def held_to(tag, got, want, tol):
                                  0.0)))
 
 
+def host_oracles_start(g):
+    """Phases 5, 6 and 12's numpy work on RMAT-22 (the PageRank oracle;
+    SpMV's oracle, bounds and task stream; the packing onto one shard)
+    started in a process of its own (``--host-oracles``), so that it runs
+    while the card runs phases 2-11. Writes ``g`` for it into ``build/host_oracles``; returns ``(process,
+    directory)`` for :func:`host_oracle`."""
+    import numpy as np
+    out_dir = ROOT / "build" / "host_oracles"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    for k in ("row_ptr", "col_idx", "values"):
+        np.save(out_dir / f"g_{k}.npy", getattr(g, k))
+    with open(out_dir / "log.txt", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--host-oracles",
+             str(out_dir)], stdout=f, stderr=subprocess.STDOUT,
+            cwd=str(ROOT))
+    CHILDREN.append(proc)
+    return proc, out_dir
+
+
+def host_oracle(oracles, name, wait=600):
+    """``name``'s array from the ``--host-oracles`` process and the seconds
+    it took there, once it is written; fails if the process failed or
+    took longer than ``wait`` seconds."""
+    import numpy as np
+    proc, out_dir = oracles
+    path = out_dir / f"{name}.npy"
+    deadline = time.perf_counter() + wait
+    while not path.exists():
+        if proc.poll() not in (None, 0) or time.perf_counter() > deadline:
+            proc.kill()
+            raise AssertionError(
+                f"--host-oracles (rc {proc.poll()}) gave no {name}:\n"
+                + (out_dir / "log.txt").read_text()[-3000:])
+        time.sleep(0.2)
+    seconds = json.loads((out_dir / f"{name}.json").read_text())
+    return np.load(path), seconds
+
+
+def host_oracles_worker(out_dir):
+    """``--host-oracles DIR``: loads the graph :func:`host_oracles_start`
+    wrote and writes, each as soon as it is done (renamed into place, its
+    seconds beside it): ``ref.pagerank_ref``; for SpMV's ``x`` (drawn as
+    :func:`run_spmv` draws it) ``ref.spmv_ref``, :func:`spmv_bounds` and
+    ``spmv_task_stream`` onto 64 shards; then ``_graph_setup(g, 1)``.
+    Numpy only: it never touches the card."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.sparse import ref
+    from repro_torch.sparse.csr import CSR
+    from repro_torch.sparse.program import _graph_setup
+    from repro_torch.sparse.torch_apps import spmv_task_stream
+    out_dir = Path(out_dir)
+    g = CSR(*(np.load(out_dir / f"g_{k}.npy")
+              for k in ("row_ptr", "col_idx", "values")))
+
+    def put(name, a, t0):
+        np.save(out_dir / f"{name}.part.npy", a)
+        (out_dir / f"{name}.json").write_text(
+            json.dumps(time.perf_counter() - t0))
+        os.replace(out_dir / f"{name}.part.npy", out_dir / f"{name}.npy")
+    t0 = time.perf_counter()
+    put("pagerank", ref.pagerank_ref(g), t0)
+    x = spmv_x(g)
+    t0 = time.perf_counter()
+    put("spmv_y", ref.spmv_ref(g, x), t0)
+    t0 = time.perf_counter()
+    tol_oracle, tol_runs = spmv_bounds(g, x)
+    put("spmv_tol_oracle", tol_oracle, t0)
+    put("spmv_tol_runs", tol_runs, t0)
+    t0 = time.perf_counter()
+    dest, vals = spmv_task_stream(g, x, 64)
+    put("spmv_vals", vals, t0)
+    put("spmv_dest", dest, t0)
+    del dest, vals
+    t0 = time.perf_counter()
+    n_local, src_slot, dst, w, e_max = _graph_setup(g, 1)
+    for k, a in (("src_slot", src_slot), ("dst", dst), ("w", w)):
+        put(f"setup1_{k}", a, t0)
+    put("setup1", np.array([n_local, e_max]), t0)
+    return 0
+
+
+def host_setup1(oracles):
+    """``_graph_setup(g, 1)`` from the ``--host-oracles`` process and the
+    seconds it took there."""
+    (n_local, e_max), seconds = host_oracle(oracles, "setup1")
+    return ((int(n_local),) + tuple(host_oracle(oracles, f"setup1_{k}")[0]
+                                    for k in ("src_slot", "dst", "w"))
+            + (int(e_max),)), seconds
+
+
+def spmv_x(g):
+    """Phase 6's dense vector, from the seed."""
+    import numpy as np
+    return np.random.default_rng(SEED).random(g.n)
+
+
 def spmv_bounds(g, x):
     """Per row of ``y = A @ x``: ``(bound against the float64 oracle,
     bound between two float32 runs)``. A term ``v = fl(A[r, c] fl(x[c]))``
@@ -1478,16 +1613,15 @@ def pagerank_bound(g, device, damping=0.85, iters=20, n_dev=64):
     return e.cpu().numpy() * (1 + 2.0 ** -20)
 
 
-def run_pagerank(g, setup, device, totals):
+def run_pagerank(g, setup, device, totals, oracles):
     import numpy as np
     import torch
     from repro_torch.core.fabric import Fabric
-    from repro_torch.sparse import ref
     from repro_torch.sparse.options import LaunchOptions
     from repro_torch.sparse.torch_apps import dcra_pagerank
     t0 = time.perf_counter()
-    want = ref.pagerank_ref(g)
-    t_ref = time.perf_counter() - t0
+    want, t_ref = host_oracle(oracles, "pagerank")
+    t_wait = time.perf_counter() - t0
     fab = Fabric.fake(64, device=device)
     opts = LaunchOptions(capacity_factor=4.0)
     torch.cuda.reset_peak_memory_stats()
@@ -1521,7 +1655,8 @@ def run_pagerank(g, setup, device, totals):
         f"{int(st.messages[0])} drops=0 run_s={run_s:.4f} "
         f"edges*iters/s={g.nnz * 20 / run_s:.4e} peak_mem_gb={peak_gb:.2f} "
         f"max|err|/max(rank): oracle {err:.3e}, plain-torch path "
-        f"{err_plain:.3e}; oracle {t_ref:.2f} s (numpy); launches "
+        f"{err_plain:.3e}; oracle {t_ref:.2f} s (numpy, beside phases 2-5; "
+        f"waited {t_wait:.2f} s for it); launches "
         f"{path.launches}, route designs {path.paths}")
     log(f"pagerank flat 64: every vertex within its float32 error bound "
         f"(median bound / rank {float(np.median(bound / want)):.3e}, "
@@ -1544,19 +1679,28 @@ def log_profile(tag, per_round, device_ms, wall_ms, top):
         + "; ".join(f"{name} {ms:.2f}" for name, ms in top))
 
 
-def run_spmv(g, device, totals):
+def run_spmv(g, device, totals, oracles):
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.core.fabric import Fabric
-    from repro_torch.sparse import ref
     from repro_torch.sparse.options import LaunchOptions
-    from repro_torch.sparse.torch_apps import dcra_spmv, spmv_task_stream
-    x = np.random.default_rng(SEED).random(g.n)
-    want = ref.spmv_ref(g, x)
-    tol_oracle, tol_runs = spmv_bounds(g, x)
-    t0 = time.perf_counter()
-    spmv_task_stream(g, x, 64)
-    stream_s = time.perf_counter() - t0
+    from repro_torch.sparse.program import run_program
+    from repro_torch.sparse.torch_apps import SPMV, dcra_spmv
+    x = spmv_x(g)
+    want, _ = host_oracle(oracles, "spmv_y")
+    tol_oracle, _ = host_oracle(oracles, "spmv_tol_oracle")
+    tol_runs, _ = host_oracle(oracles, "spmv_tol_runs")
+    dest, stream_s = host_oracle(oracles, "spmv_dest")
+    vals, _ = host_oracle(oracles, "spmv_vals")
+
+    def built_stream(data, params, n_dev, seed):
+        # the plain runs route the stream dcra_spmv builds (64 shards,
+        # seed 0), built once beside phases 2-5
+        if n_dev != 64 or seed != 0:
+            raise ValueError("the stream was built for 64 shards, seed 0")
+        return dest, vals, g.n
+    spmv_built = dataclasses.replace(SPMV, stream=built_stream)
     for layout, fab, opts in [
             ("flat 64", Fabric.fake(64, device=device),
              LaunchOptions(capacity_factor=2.0)),
@@ -1577,8 +1721,9 @@ def run_spmv(g, device, totals):
                                  f"{err}")
         w_oracle = held_to(f"SpMV {layout} vs the oracle", y, want,
                            tol_oracle)
-        plain, pdrops = dcra_spmv(g, x, fab,
-                                  options=opts.with_(route_impl="sort"))
+        plain, pst = run_program(spmv_built, (g, x), fab, dataset=g,
+                                 options=opts.with_(route_impl="sort"))
+        pdrops = pst.total_drops
         err_plain = rel_err(y, plain.astype(np.float64))
         if pdrops or not err_plain < 1e-4:
             raise AssertionError(f"SpMV {layout}: kernel path off the "
@@ -1586,7 +1731,7 @@ def run_spmv(g, device, totals):
         w_plain = held_to(f"SpMV {layout} vs the plain-torch path", y, plain,
                           tol_runs)
         log(f"spmv rmat-{SCALE} {layout}: drops=0 stream build {stream_s:.2f} s "
-            f"(numpy) run_s={run_s:.4f} (stream build included) "
+            f"(numpy, beside phases 2-5) run_s={run_s:.4f} (stream build included) "
             f"nnz/s={g.nnz / run_s:.4e} peak_mem_gb={peak_gb:.2f} "
             f"max|err|/max|y|: oracle {err:.3e}, plain-torch path "
             f"{err_plain:.3e}; every row within its float32 bound, worst "
@@ -2624,14 +2769,16 @@ def reduce_at_fold(route, want, src_slot, dst, valid, device):
         f"bit-identical to the plain version [{SMI}]")
 
 
-def run_pipelined(g, root, want, setup, device, totals, pagerank):
+def run_pipelined(g, root, want, setup, device, totals, pagerank,
+                  packed1=None):
     """Phase 12: BFS on RMAT-22 in lockstep and pipelined rounds, flat 64,
     pod 8 x 8 and one shard (``fold_local``), bit-identical; PageRank
     flat 64, 20 rounds, the same message and drop streams and ranks
     within phase 5's float32 bound (twice it: both sides carry one) of
     lockstep. Each mode once more for its rates, copies and reads.
-    Returns the rank kernel's times at the one-shard path's shape
-    (:func:`rank_at_fold`)."""
+    ``packed1`` is ``(_graph_setup(g, 1), seconds)`` packed elsewhere
+    (:func:`host_setup1`), or packed here. Returns the rank kernel's
+    times at the one-shard path's shape (:func:`rank_at_fold`)."""
     import numpy as np
     from repro_torch.core.fabric import Fabric
     from repro_torch.sparse import program
@@ -2639,10 +2786,14 @@ def run_pipelined(g, root, want, setup, device, totals, pagerank):
     from repro_torch.sparse.torch_apps import BFS, PAGERANK
     reached = int(g.degrees()[want >= 0].sum())
     copy_report(setup, device)
-    t0 = time.perf_counter()
-    setup1 = program._graph_setup(g, 1)
-    log(f"pipelined: pack onto 1 shard {time.perf_counter() - t0:.2f} s "
-        f"(E_max {setup1[-1]})")
+    given = packed1 is not None
+    if not given:
+        t0 = time.perf_counter()
+        packed1 = program._graph_setup(g, 1), time.perf_counter() - t0
+    setup1, pack_s = packed1
+    log(f"pipelined: pack onto 1 shard {pack_s:.2f} s (numpy"
+        + (", beside phases 2-11" if given else "")
+        + f") (E_max {setup1[-1]})")
     for layout, fab, opts, stp in [
             ("flat 64", Fabric.fake(64, device=device),
              LaunchOptions(capacity_factor=4.0), setup),
@@ -2773,7 +2924,7 @@ def serve_pass(tag, srv, reqs, totals, width):
         f"{rounds[0]}-{rounds[-1]}, cache {delta}, no drop, stats verified; "
         f"peak card memory above the resident graph {peak} B; launches "
         f"{path.launches} [{SMI}]")
-    return resps
+    return resps, wall
 
 
 def run_server(device, totals):
@@ -2837,18 +2988,22 @@ def run_server(device, totals):
             f"resident packing "
             f"{'shared from the first server' if shared else 'included'}), "
             f"{n_new} new key each for bfs and sssp")
-        passes[tag] = serve_pass(f"serve {tag}", srv, reqs, totals,
-                                 SERVE_WIDTH)
-        _, device_ms, wall_ms, top = profile_kernels(
-            lambda: srv.run(reqs[:SERVE_PROFILED]), 1)
-        log(f"serve {tag}: profiled pass over {SERVE_PROFILED} requests: "
-            f"device {device_ms:.2f} ms of {wall_ms:.2f} ms (busy "
-            f"{device_ms / wall_ms if wall_ms else 0.0:.3f}); costliest "
-            f"device ops (ms): "
-            + "; ".join(f"{op} {ms:.2f}" for op, ms in top) + f" [{SMI}]")
-        srv.stats.verify()
+        passes[tag], wall = serve_pass(f"serve {tag}", srv, reqs, totals,
+                                       SERVE_WIDTH)
+        if tag == "lockstep":
+            # one profiled pass: the four passes' busy shares lay within
+            # 0.471-0.507 (chip run B, PR 25)
+            rate = len(reqs) / wall
+            _, device_ms, wall_ms, top = profile_kernels(
+                lambda: srv.run(reqs[:SERVE_PROFILED]), 1)
+            log(f"serve {tag}: profiled pass over {SERVE_PROFILED} "
+                f"requests: device {device_ms:.2f} ms of {wall_ms:.2f} ms "
+                f"(busy {device_ms / wall_ms if wall_ms else 0.0:.3f}); "
+                f"costliest device ops (ms): "
+                + "; ".join(f"{op} {ms:.2f}" for op, ms in top)
+                + f" [{SMI}]")
+            srv.stats.verify()
         del srv
-    del resident
     base = [r.result for r in passes["lockstep"]]
     for tag in ("pipelined", "donated", "lockstep depth 3"):
         if not all(np.array_equal(a, r.result)
@@ -2869,9 +3024,11 @@ def run_server(device, totals):
         f"lockstep pass "
         f"response by response; responses {list(picks)} bit-identical to "
         f"standalone run_program runs of their roots")
-    del setup, passes, base
+    del setup, passes
     torch.cuda.empty_cache()
     run_moe_service(device, totals)
+    # phase 20 serves the same graph from the same packing
+    return base[:SERVE_OUT_REQUESTS], rate, g, resident
 
 
 def run_moe_service(device, totals):
@@ -3219,9 +3376,32 @@ SCALE_OUT_RUNS = (
                                     ("pod 2x4", (2, 4), ("pod", "data"),
                                      SCALE_OUT_POD))),
     ("histogram flat 8", "hist", "histogram", (8,), ("data",), {}),
-    ("bfs flat 64 lockstep, again", "rmat22", "bfs", (64,), ("data",),
-     dict(capacity_factor=4.0)),
 )
+
+
+RMAT22_ARRAYS = ("row_ptr", "col_idx", "values", "src_slot", "dst", "w")
+
+
+def save_rmat22(out_dir, g, setup):
+    """Phase 2's RMAT-22 and its packing onto 64 shards into ``out_dir``,
+    for the phase-15 workers to load instead of building them again."""
+    import numpy as np
+    n_local, src_slot, dst, w, e_max = setup
+    for k, a in zip(RMAT22_ARRAYS, (g.row_ptr, g.col_idx, g.values,
+                                    src_slot, dst, w)):
+        np.save(out_dir / f"rmat22_{k}.npy", a)
+    (out_dir / "rmat22.json").write_text(json.dumps([int(n_local),
+                                                     int(e_max)]))
+
+
+def load_rmat22(out_dir):
+    """``(g, setup)`` as :func:`save_rmat22` wrote them."""
+    import numpy as np
+    from repro_torch.sparse.csr import CSR
+    a = {k: np.load(out_dir / f"rmat22_{k}.npy") for k in RMAT22_ARRAYS}
+    n_local, e_max = json.loads((out_dir / "rmat22.json").read_text())
+    return (CSR(a["row_ptr"], a["col_idx"], a["values"]),
+            (n_local, a["src_slot"], a["dst"], a["w"], e_max))
 
 
 def scale_out_data(g22=None, setup22=None):
@@ -3279,8 +3459,9 @@ def scale_out_run(spec, data, fabric):
 def scale_out_worker(coord, pid, out_dir):
     """``--scale-out-worker COORD PID DIR``: one process of phase 15. Joins
     the gloo group at ``COORD`` as process ``PID`` with a fabric of each
-    run's shape on the card, builds phase 15's inputs from the seed, runs
-    :data:`SCALE_OUT_RUNS` in order, and writes
+    run's shape on the card, loads RMAT-22 and its packing from ``DIR``
+    (:func:`save_rmat22`), builds the rest of phase 15's inputs from the
+    seed, runs :data:`SCALE_OUT_RUNS` in order, and writes
     each run's states (``p<PID>_<i>.npy``) and a record of its wall
     seconds, rounds, streams, launches, route designs, exchange counters
     and peak card memory (``p<PID>.json``) into ``DIR``. It loads the
@@ -3310,7 +3491,7 @@ def scale_out_worker(coord, pid, out_dir):
     fabric((64,), ("data",))
     join_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    data = scale_out_data()
+    data = scale_out_data(*load_rmat22(out_dir))
     setup_s = time.perf_counter() - t0
     records = []
     for i, spec in enumerate(SCALE_OUT_RUNS):
@@ -3348,11 +3529,11 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_workers(out_dir):
+def run_workers(out_dir, flag="--scale-out-worker", wait=SCALE_OUT_WAIT):
     """Start :data:`SCALE_OUT_PROCS` workers (new processes of this
-    script, ``cuda:0`` in each) and wait for all of them; a worker that
-    fails, or a wait past :data:`SCALE_OUT_WAIT`, stops the others and
-    raises with the tails of their logs."""
+    script with ``flag``, ``cuda:0`` in each) and wait for all of them; a
+    worker that fails, or a wait past ``wait`` seconds, stops the others
+    and raises with the tails of their logs."""
     coord = f"127.0.0.1:{free_port()}"
     logs = [out_dir / f"p{pid}.log" for pid in range(SCALE_OUT_PROCS)]
     procs = []
@@ -3361,9 +3542,9 @@ def run_workers(out_dir):
             with open(path, "w") as f:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()),
-                     "--scale-out-worker", coord, str(pid), str(out_dir)],
+                     flag, coord, str(pid), str(out_dir)],
                     stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)))
-        deadline = time.perf_counter() + SCALE_OUT_WAIT
+        deadline = time.perf_counter() + wait
         while any(p.poll() is None for p in procs):
             if (any(p.returncode not in (None, 0) for p in procs)
                     or time.perf_counter() > deadline):
@@ -3379,7 +3560,7 @@ def run_workers(out_dir):
         tails = "\n".join(f"--- worker {pid} (rc {rc}):\n"
                           + path.read_text()[-3000:]
                           for pid, (rc, path) in enumerate(zip(rcs, logs)))
-        raise AssertionError(f"scale-out: workers ended with {rcs}\n{tails}")
+        raise AssertionError(f"{flag}: workers ended with {rcs}\n{tails}")
     return [json.loads((out_dir / f"p{pid}.json").read_text())
             for pid in range(SCALE_OUT_PROCS)]
 
@@ -3419,18 +3600,24 @@ def run_scale_out(device, totals, g22=None, setup22=None):
             raise AssertionError(f"scale-out {spec[0]}: the one-process run "
                                  f"dropped {int(np.sum(out[3]))} tasks")
     bound = pagerank_bound(data["rmat18"][0], device, n_dev=8)
-    del data
-    torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "scale_out"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    g22, setups22, _ = data["rmat22"]
+    save_rmat22(out_dir, g22, setups22[False])
+    log(f"scale-out: RMAT-22 and its packing written for the workers in "
+        f"{time.perf_counter() - t0:.2f} s [{SMI}]")
+    del data, g22, setups22
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     workers = run_workers(out_dir)
     log(f"scale-out: {SCALE_OUT_PROCS} workers on {device} "
         f"(gloo over 127.0.0.1, staged through pinned host memory) "
         f"{time.perf_counter() - t0:.2f} s in all; join s "
-        f"{[round(w['join_s'], 2) for w in workers]}, inputs from the seed "
-        f"s {[round(w['setup_s'], 2) for w in workers]} [{SMI}]")
+        f"{[round(w['join_s'], 2) for w in workers]}, inputs (RMAT-22 "
+        f"loaded, the rest from the seed) s "
+        f"{[round(w['setup_s'], 2) for w in workers]} [{SMI}]")
     for i, spec in enumerate(SCALE_OUT_RUNS):
         tag, key, app = spec[:3]
         (states, rounds, msgs, drops, work), ref_wall, design = refs[i]
@@ -5009,6 +5196,458 @@ def run_dry(device, totals):
     dry_measured(device, totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the serving tier and the MoE layer on a distributed fabric
+# ---------------------------------------------------------------------------
+
+SERVE_OUT_SHAPE = (2, 32)           # ("portal", "data"): one pod a process
+SERVE_OUT_NAMES = ("portal", "data")
+SERVE_OUT_REQUESTS = 16             # phase 13's stream, its first half:
+                                    # 32 took 125 s a pass across the two
+                                    # processes (gloo), over 150 s
+SERVE_OUT_LOSS = (2, 32)            # (b): the launch of the loss, shards kept
+SERVE_OUT_PG_TIMEOUT = 300          # seconds: the gloo group's collectives
+SERVE_OUT_WAIT = 900                # seconds the parent waits for a worker
+MOE_OUT_PACKAGING = 2               # phase 10's two-stage (pod 2, ...)
+MOE_NO_DROP = {"dispatch": 8.0, "portal": 1.0, "expert": 1.0}
+MOE_WEIGHTS = ("router", "wg", "wu", "wd")
+
+
+def serve_out_graph():
+    """Phase 13's resident graph and the first ``SERVE_OUT_REQUESTS`` of its
+    stream, from the seed."""
+    from repro_torch.sparse import datasets
+    g = datasets.rmat(SERVE_SCALE, seed=SEED)
+    return g, serve_requests(g.n)[:SERVE_OUT_REQUESTS]
+
+
+def response_record(resps):
+    """What must agree between servers: statuses, reasons, rounds, the
+    launch's messages and drops, a response each."""
+    return [[r.req_id, r.status, r.reason, r.rounds, r.batch_messages,
+             r.batch_drops] for r in resps]
+
+
+def serve_out_pass(tag, srv, reqs, pid, out_dir, i, warm=True):
+    """One pass of ``reqs`` through a worker's distributed server, after its
+    pre-warm unless the classes are warm already (``warm=False``): the
+    record, the results into ``p<pid>_serve<i>.npy``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import route
+    from repro_torch.sparse import program
+    t0 = time.perf_counter()
+    if warm:
+        srv.prewarm(("bfs", "sssp"))
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launches()
+    srv.fabric.exchange.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = program.cache_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    resps = srv.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c1 = program.cache_stats()
+    srv.stats.verify()
+    np.save(out_dir / f"p{pid}_serve{i}.npy", np.stack(
+        [np.zeros(0) if r.result is None else r.result.astype(np.float32)
+         for r in resps]))
+    return {"tag": tag, "warm_s": warm_s, "wall_s": wall,
+            "responses": response_record(resps),
+            "cache": {k: c1[k] - c0[k] for k in c0},
+            "launches": read_launches(), "batches": srv.stats.launches,
+            "paths": {k: dict(v) for k, v in route.PATHS.items()},
+            "exchange": dict(srv.fabric.exchange.stats),
+            "host_losses": srv.stats.host_losses,
+            "shape": list(srv.fabric.shape),
+            "local_shards": list(srv.fabric.local_shards),
+            "peak_bytes": int(torch.cuda.max_memory_allocated())}
+
+
+def digest(tensors):
+    """One hash of the bytes of ``tensors``: equal digests are equal
+    tensors, without moving them between processes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def moe_out_grads(params, xs, r, cfg, info, queues):
+    """``moe_dcra``'s loss ``sum(out * r) + aux`` on ``info``'s fabric and
+    its gradients with respect to the four weights and ``xs``."""
+    import torch
+    from repro_torch.core.dispatch import moe_dcra
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    x = xs.detach().requires_grad_(True)
+    out, aux, stats = moe_dcra(p, x, cfg, info, queues=queues,
+                               return_stats=True)
+    loss = (out * r).sum() + aux
+    grads = torch.autograd.grad(loss, [p[k] for k in MOE_WEIGHTS] + [x])
+    return (float(loss), dict(zip(MOE_WEIGHTS + ("x",), grads)),
+            stats.total_dropped)
+
+
+def serve_out_moe(pid, device):
+    """Phase 20 (c) and (d) in a worker: one dispatch of OLMoE-1B-7B's MoE
+    layer through a ``ProgramServer``'s MoE lane on the two-stage
+    packaging, the pods one a process; one gradient of that layer. Rank
+    0 holds each against ``moe_dcra`` on the virtual packaging."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.dispatch import MeshInfo, moe_dcra
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.queues import QueueConfig
+    from repro_torch.kernels import route
+    from repro_torch.serve import MoEService, ProgramServer, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, x = moe_setup(device)
+    label, shape, names, kw = MOE_PACKAGINGS[MOE_OUT_PACKAGING]
+    fab = Fabric.distributed(shape, names, device=device)
+    info = MeshInfo(fab, **kw)
+    svc = MoEService(cfg, params, info, batch=MOE_TOKENS[0],
+                     seq=MOE_TOKENS[1])
+    srv = ProgramServer(fab, {}, moe=svc)
+    blocks = x.cpu().numpy()
+    reqs = [Request(i, f"tenant{i}", "moe", payload=blocks[i])
+            for i in range(MOE_TOKENS[0])]
+    srv.prewarm(("moe",))
+    # the lane's warm callable, asked for the statistics of the very
+    # dispatch that is timed and checked (no build: ``traces`` stays)
+    lane = {}
+
+    def with_stats(p, xt):
+        out, aux, lane["stats"] = moe_dcra(p, xt, cfg, info,
+                                           return_stats=True)
+        return out, aux
+    svc._fn = with_stats
+    torch.cuda.synchronize()
+    reset_launches()
+    fab.exchange.reset_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    resps = srv.run(reqs)
+    torch.cuda.synchronize()
+    rec = {"label": label, "lane_s": time.perf_counter() - t0,
+           "d_model": cfg.d_model,
+           "statuses": [r.status for r in resps], "traces": svc.traces,
+           "launches": read_launches(),
+           "paths": {k: dict(v) for k, v in route.PATHS.items()},
+           "exchange": dict(fab.exchange.stats),
+           "local_shards": list(fab.local_shards),
+           "dcn_axes": list(fab.dcn_axes())}
+    srv.stats.verify()
+    got = torch.from_numpy(np.stack([r.result for r in resps]))
+    del resps, blocks
+    stats = lane.pop("stats")
+    drops = {k: [v.cpu().tolist() for v in c] for k, c in stats.buckets.items()}
+    rec["dropped"] = stats.total_dropped
+    rec["out_digest"] = digest([got])
+    if pid == 0:
+        vinfo = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+        reset_launches()
+        want, _, vstats = moe_dcra(params, x, cfg, vinfo, return_stats=True)
+        rec["virtual_launches"] = read_launches()
+        want = want.cpu()
+        rec["scale"] = float(want.abs().max())
+        rec["err"] = float((got - want).abs().max())
+        rec["drops_equal"] = drops == {
+            k: [v.cpu().tolist() for v in c] for k, c in vstats.buckets.items()}
+        del want, vstats
+    del got, stats
+    torch.cuda.empty_cache()
+
+    # (d): the gradient on the smaller x with no drop
+    nb, seq = MOE_CHECK_TOKENS
+    xs = x[:nb, :seq].contiguous()
+    del x
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    r = torch.randn(xs.shape, generator=gen, device=device)
+    queues = QueueConfig(default_iq=None, iq_factors=MOE_NO_DROP)
+    torch.cuda.synchronize()
+    reset_launches()
+    fab.exchange.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss, grads, dropped = moe_out_grads(params, xs, r, cfg, info, queues)
+    torch.cuda.synchronize()
+    rec["grad"] = {"s": time.perf_counter() - t0, "loss": loss,
+                   "dropped": dropped, "launches": read_launches(),
+                   "exchange": dict(fab.exchange.stats),
+                   "peak_bytes": int(torch.cuda.max_memory_allocated()),
+                   "digest": digest([grads[k] for k in MOE_WEIGHTS])}
+    if pid == 0:
+        vinfo = MeshInfo(Fabric.virtual(shape, names, device=device), **kw)
+        reset_launches()
+        vloss, vgrads, _ = moe_out_grads(params, xs, r, cfg, vinfo, queues)
+        rec["grad"]["virtual_launches"] = read_launches()
+        rec["grad"]["virtual_loss"] = vloss
+        rec["grad"]["err"] = {
+            k: [float((grads[k] - vgrads[k]).abs().max()),
+                float(vgrads[k].abs().max())] for k in grads}
+    return rec
+
+
+def serve_out_worker(coord, pid, out_dir):
+    """``--serve-out-worker COORD PID DIR``: one process of phase 20. Joins
+    the gloo group at ``COORD`` as process ``PID`` with a
+    ``("portal", "data")`` (2, 32) fabric on the card, builds phase 13's
+    graph and stream from the seed, serves it (a) in lockstep and (b)
+    with a host loss, then runs (c) and (d) (:func:`serve_out_moe`), and
+    writes the results (``p<PID>_serve<i>.npy``) and a record
+    (``p<PID>.json``) into ``DIR``. It loads the kernels the parent built
+    and fails if it had to build one."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (ProgramServer, ServeFailurePlan,
+                                   ServeOptions)
+    pid, out_dir = int(pid), Path(out_dir)
+    built = [k for k, r in _build.build().items() if r["seconds"]]
+    if built:
+        raise AssertionError(f"worker {pid} built {built}: the parent "
+                             f"builds every kernel before it starts")
+    device = torch.device(*CARD)
+    t0 = time.perf_counter()
+    fab = Fabric.distributed(SERVE_OUT_SHAPE, SERVE_OUT_NAMES,
+                             coordinator_address=coord, num_processes=2,
+                             process_id=pid, device=device,
+                             timeout=SERVE_OUT_PG_TIMEOUT)
+    join_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g, reqs = serve_out_graph()
+    rec = {"join_s": join_s, "setup_s": time.perf_counter() - t0,
+           "passes": []}
+    name = f"rmat{SERVE_SCALE}"
+    at, keep = SERVE_OUT_LOSS
+    resident = {}
+    for i, (tag, so, plan) in enumerate((
+            ("lockstep", ServeOptions(), None),
+            ("host loss", ServeOptions(max_retries=1),
+             ServeFailurePlan(at={at: "host_loss"}, keep_devices=keep)))):
+        srv = ProgramServer(fab, {name: g}, batch_width=SERVE_WIDTH,
+                            serve_options=so, failure_plan=plan)
+        # (b) starts from (a)'s warm classes and resident packing
+        srv._resident.update(resident)
+        rec["passes"].append(serve_out_pass(tag, srv, reqs, pid, out_dir, i,
+                                            warm=not resident))
+        resident = srv._resident
+        del srv
+    del resident
+    del g
+    torch.cuda.empty_cache()
+    rec["moe"] = serve_out_moe(pid, device)
+    (out_dir / f"p{pid}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_serve_out(device, totals, base=None):
+    """Phase 20: phase 13's server and the MoE layer on a distributed
+    fabric, two worker processes (``--serve-out-worker``) sharing the card
+    over gloo. Here first: the one-process server on the same (2, 32)
+    shape from phase 13's resident packing (``base``: phase 13's
+    results, requests/s, graph and packing; when phase 13 has not run,
+    its flat-64 lockstep pass makes them). Then the workers' (a)-(d)
+    against them: every response bit-identical to phase 13's, rounds,
+    messages and drops equal to the one-process server's, no build under
+    load and no drop, the scatter ``staged`` and the reduce ``atomic``,
+    both workers alike; the host loss served whole; the MoE lane within
+    1e-5 of max|out| of the virtual packaging, its own dispatch's drops
+    per bucket equal to the virtual packaging's; the gradient within 1e-5 of each leaf's max|g|, the weights'
+    gradients identical in both processes. The workers' launches join
+    ``totals``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.serve import ProgramServer
+    name = f"rmat{SERVE_SCALE}"
+    if base is None:
+        g, reqs = serve_out_graph()
+        srv = ProgramServer(Fabric.fake(64, device=device), {name: g},
+                            batch_width=SERVE_WIDTH)
+        srv.prewarm(("bfs", "sssp"))
+        resps, wall = serve_pass("serve-out: phase 13's lockstep pass, flat "
+                                 "64", srv, reqs, totals, SERVE_WIDTH)
+        base = ([r.result for r in resps], len(reqs) / wall, g, srv._resident)
+        del srv, resps
+    results13, rate13, g, resident = base
+    reqs = serve_requests(g.n)[:SERVE_OUT_REQUESTS]
+    n = len(reqs)
+    one = ProgramServer(Fabric.virtual(SERVE_OUT_SHAPE, SERVE_OUT_NAMES,
+                                       device=device), {name: g},
+                        batch_width=SERVE_WIDTH)
+    # phase 13's packing: the same graph, shard count and seed
+    one._resident.update(resident)
+    t0 = time.perf_counter()
+    one.prewarm(("bfs", "sssp"))
+    log(f"serve-out one process {SERVE_OUT_SHAPE}: pre-warm "
+        f"{time.perf_counter() - t0:.2f} s (phase 13's resident packing) "
+        f"[{SMI}]")
+    resps, wall1 = serve_pass(f"serve-out one process {SERVE_OUT_SHAPE}",
+                              one, reqs, totals, SERVE_WIDTH)
+    if not all(np.array_equal(r.result, results13[i])
+               for i, r in enumerate(resps)):
+        raise AssertionError("serve-out: the one-process (2, 32) server's "
+                             "responses differ from phase 13's")
+    want = response_record(resps)
+    del one, resps, g, resident, base
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "serve_out"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    workers = run_workers(out_dir, "--serve-out-worker", SERVE_OUT_WAIT)
+    log(f"serve-out: 2 workers on {device} (gloo over 127.0.0.1, a "
+        f"(2, 32) fabric, one pod a process) {time.perf_counter() - t0:.2f} "
+        f"s in all; join s {[round(w['join_s'], 2) for w in workers]}, "
+        f"RMAT-{SERVE_SCALE} from the seed s "
+        f"{[round(w['setup_s'], 2) for w in workers]} [{SMI}]")
+    for i in range(2):
+        recs = [w["passes"][i] for w in workers]
+        got = [np.load(out_dir / f"p{pid}_serve{i}.npy") for pid in (0, 1)]
+        if not np.array_equal(got[0], got[1]) or recs[0]["responses"] != \
+                recs[1]["responses"]:
+            raise AssertionError(f"serve-out pass {i}: the workers' "
+                                 f"responses differ")
+        same13 = all(np.array_equal(got[0][j], results13[j])
+                     for j in range(n))
+        statuses = [r[1] for r in recs[0]["responses"]]
+        if not same13 or statuses != ["ok"] * n:
+            raise AssertionError(f"serve-out {recs[0]['tag']}: statuses "
+                                 f"{statuses}, results equal to phase 13's "
+                                 f"{same13}")
+        for pid, rec in enumerate(recs):
+            if i == 0:
+                drops = sum(r[5] for r in rec["responses"])
+                if (rec["responses"] != want or drops
+                        or rec["cache"]["misses"]
+                        or rec["cache"]["kernel_traces"]):
+                    raise AssertionError(
+                        f"serve-out lockstep p{pid}: rounds, messages or "
+                        f"drops differ from the one-process server's, or "
+                        f"{drops} drops, cache {rec['cache']}")
+            elif rec["host_losses"] != 1 or rec["shape"] != [
+                    SERVE_OUT_LOSS[1] // SERVE_OUT_SHAPE[1],
+                    SERVE_OUT_SHAPE[1]]:
+                raise AssertionError(f"serve-out host loss p{pid}: "
+                                     f"{rec['host_losses']} losses, fabric "
+                                     f"{rec['shape']}")
+            for k in ROUTE_KERNELS:
+                if not rec["launches"][k]:
+                    raise AssertionError(f"serve-out {rec['tag']} p{pid}: "
+                                         f"{k} never launched")
+            for wrapper, design in STAGED_ATOMIC.items():
+                ran_only(rec["paths"][wrapper], design,
+                         f"serve-out {rec['tag']} p{pid}: {wrapper}")
+            for k, v in rec["launches"].items():
+                totals[k] += v
+            ex = rec["exchange"]
+            log(f"serve-out {rec['tag']} p{pid} (shards "
+                f"{rec['local_shards']} of {rec['shape']} after): {n} "
+                f"requests in {rec['wall_s']:.4f} s, requests/s "
+                f"{n / rec['wall_s']:.4e} (phase 13's flat 64 "
+                f"{rate13:.4e}, one process on (2, 32) {n / wall1:.4e}); "
+                f"pre-warm {rec['warm_s']:.2f} s; {rec['batches']} launches, "
+                f"rounds {min(r[3] for r in rec['responses'])}-"
+                f"{max(r[3] for r in rec['responses'])}; exchanges "
+                f"{ex['calls']}, bytes out {ex['bytes_out']}, gloo s a "
+                f"launch {ex['gloo_s'] / max(rec['batches'], 1):.4f} (wait "
+                f"{ex['wait_s']:.3f} d2h {ex['d2h_s']:.3f} h2d "
+                f"{ex['h2d_s']:.3f} s in all); agreements "
+                f"{ex['agree_calls']}, agree s a launch "
+                f"{ex['agree_s'] / max(rec['batches'], 1):.4f} "
+                f"({ex['agree_s']:.3f} s in all); cache {rec['cache']}; peak "
+                f"card memory {rec['peak_bytes']} B; launches "
+                f"{rec['launches']} [{SMI}]")
+        log(f"serve-out {recs[0]['tag']}: both workers alike, every response "
+            f"ok and bit-identical to phase 13's"
+            + ("; rounds, messages and drops equal to the one-process "
+               "server's, no drop, no build under load" if i == 0 else
+               f"; the fabric shrank to {recs[0]['shape']}, "
+               f"{recs[0]['local_shards']} a process") + f" [{SMI}]")
+    moe = [w["moe"] for w in workers]
+    m0 = moe[0]
+    if (moe[0]["out_digest"] != moe[1]["out_digest"]
+            or moe[0]["grad"]["digest"] != moe[1]["grad"]["digest"]):
+        raise AssertionError("serve-out MoE: the workers' outputs or weight "
+                             "gradients differ")
+    if (m0["statuses"] != ["ok"] * MOE_TOKENS[0] or m0["traces"] != 1
+            or not m0["err"] <= 1e-5 * m0["scale"] or not m0["drops_equal"]):
+        raise AssertionError(f"serve-out MoE lane: statuses {m0['statuses']}, "
+                             f"builds {m0['traces']}, max |err| {m0['err']} "
+                             f"vs max|out| {m0['scale']}, drops equal "
+                             f"{m0['drops_equal']}")
+    gr = m0["grad"]
+    bad = {k: v for k, v in gr["err"].items() if not v[0] <= 1e-5 * v[1]}
+    if (bad or gr["dropped"] or not abs(gr["loss"] - gr["virtual_loss"])
+            <= 1e-5 * abs(gr["virtual_loss"])):
+        raise AssertionError(f"serve-out MoE gradient: leaves off {bad}, "
+                             f"drops {gr['dropped']}, loss {gr['loss']} vs "
+                             f"{gr['virtual_loss']}")
+    for pid, rec in enumerate(moe):
+        for part in (rec["launches"], rec["grad"]["launches"]):
+            if not part["bucket_scatter"]:
+                raise AssertionError(f"serve-out MoE p{pid}: no scatter")
+            for k, v in part.items():
+                totals[k] += v
+        ran_only(rec["paths"]["bucket_scatter"], "staged",
+                 f"serve-out MoE p{pid}: bucket_scatter")
+        ex, gx = rec["exchange"], rec["grad"]["exchange"]
+        log(f"serve-out MoE {m0['label']} p{pid} (shards "
+            f"{rec['local_shards']}, crossing {rec['dcn_axes']}): the lane's "
+            f"dispatch of {MOE_TOKENS[0]} requests x ({MOE_TOKENS[1]}, "
+            f"{rec['d_model']}) "
+            f"{rec['lane_s']:.2f} s (its statistics gathered across the "
+            f"processes inside), scatter launches "
+            f"{rec['launches']['bucket_scatter']}, exchanges {ex['calls']} "
+            f"(bytes out {ex['bytes_out']}, gloo {ex['gloo_s']:.3f} s), "
+            f"{rec['dropped']} tasks dropped; gradient on x "
+            f"{MOE_CHECK_TOKENS + (rec['d_model'],)} {rec['grad']['s']:.2f} s"
+            f", scatter "
+            f"launches {rec['grad']['launches']['bucket_scatter']}, exchanges "
+            f"{gx['calls']} (gloo {gx['gloo_s']:.3f} s), peak "
+            f"{rec['grad']['peak_bytes']} B [{SMI}]")
+    log(f"serve-out MoE: both workers' outputs and weight gradients "
+        f"identical; the lane within {m0['err'] / m0['scale']:.3e} of "
+        f"max|out| of the virtual packaging (bound 1e-5), drops per bucket "
+        f"equal; loss {gr['loss']:.9e} vs {gr['virtual_loss']:.9e}; leaves "
+        f"max|dg| / max|g|: "
+        + ", ".join(f"{k} {v[0] / v[1]:.3e}" for k, v in gr["err"].items())
+        + f" (bound 1e-5) [{SMI}]")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def serve_out_only():
+    """``--serve-out``: the build and phase 20 alone (with phase 13's
+    lockstep pass for the baseline); its launch counts are printed, no
+    kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_serve_out(torch.device(*CARD), totals)
+    phase("20 (the server and the MoE layer across two processes)", t0)
+    log(f"launches {totals}")
+    return 0
+
+
 def dry_only():
     """``--dryrun``: the build and phase 19 alone; its launch counts are
     printed, no kernel table."""
@@ -5185,6 +5824,14 @@ def dse_only():
     return 0
 
 
+def stop_children():
+    """Kill what :data:`CHILDREN` still runs."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
     return time.perf_counter()
@@ -5220,10 +5867,17 @@ def main() -> int:
         return recurrent_only()
     if sys.argv[1:2] == ["--dryrun"]:
         return dry_only()
+    if sys.argv[1:2] == ["--serve-out"]:
+        return serve_out_only()
+    if sys.argv[1:2] == ["--serve-out-worker"]:
+        return serve_out_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--scale-out-worker"]:
         return scale_out_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--psum-worker"]:
         return psum_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--host-oracles"]:
+        return host_oracles_worker(sys.argv[2])
+    atexit.register(stop_children)
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import routing
@@ -5255,6 +5909,7 @@ def main() -> int:
     # ---- 2: host setup -----------------------------------------------------
     g = datasets.rmat(SCALE, seed=SEED)
     t_gen = time.perf_counter() - t0
+    oracles = host_oracles_start(g)
     t1 = time.perf_counter()
     setup = _graph_setup(g, 64)
     t_pack = time.perf_counter() - t1
@@ -5296,9 +5951,9 @@ def main() -> int:
     t0 = phase("4 (BFS rmat-22)", t0)
 
     # ---- 5-7: PageRank, SpMV, histogram ------------------------------------
-    pagerank = run_pagerank(g, setup, device, totals)
+    pagerank = run_pagerank(g, setup, device, totals, oracles)
     t0 = phase("5 (PageRank rmat-22)", t0)
-    run_spmv(g, device, totals)
+    run_spmv(g, device, totals, oracles)
     t0 = phase("6 (SpMV rmat-22)", t0)
     run_histogram(els, device, totals)
     del els
@@ -5328,11 +5983,14 @@ def main() -> int:
     rank.update({f"flat64_{k}": rank[k] for k in ("ms", "plain_ms",
                                                    "bound_ms")})
     rank.update(run_pipelined(g, root, want, setup, device, totals,
-                              pagerank))
+                              pagerank, host_setup1(oracles)))
+    oracles[0].wait()
+    shutil.rmtree(oracles[1], ignore_errors=True)
+    del oracles
     del want, pagerank
     torch.cuda.empty_cache()
     t0 = phase("12 (pipelined rounds rmat-22)", t0)
-    run_server(device, totals)
+    serve13 = run_server(device, totals)
     t0 = phase("13 (server rmat-20, MoE service)", t0)
 
     # ---- 14: the DSE sweep, the twin at scale, config="auto" ---------------
@@ -5365,6 +6023,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_dry(device, totals)
     t0 = phase("19 (launch runtime, dry run, examples)", t0)
+
+    # ---- 20: the server and the MoE layer across two processes -------------
+    torch.cuda.empty_cache()
+    run_serve_out(device, totals, serve13)
+    del serve13
+    t0 = phase("20 (the server and the MoE layer across two processes)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

@@ -14,10 +14,15 @@ tensors are stacked on the leading dimension of one device, as
 the reference's partition specs, the collectives are
 :meth:`Fabric.all_gather` / :meth:`Fabric.psum` and the transpose
 :func:`~repro_torch.core.routing.noc_all_to_all`, and
-:meth:`Fabric.unshard` puts the output back together. The buckets go
-through :func:`~repro_torch.core.routing.bucket`, whose ``"pallas"``
-impl launches the ``bucket_scatter`` kernels on the card (their staged
-design ranks the tasks in its own launches). The expert FFN is a batched ``torch.matmul``, as the reference
+:meth:`Fabric.unshard` puts the output back together. On a distributed
+fabric every process is handed the same global ``x`` and holds its own
+shards' rows: it routes, dispatches and computes them, the exchanges go
+through the fabric's :attr:`~Fabric.exchange`, and ``out`` and ``aux``
+come back global on every process, with the one-process gradient.
+
+The buckets go through :func:`~repro_torch.core.routing.bucket`, whose
+``"pallas"`` impl launches the ``bucket_scatter`` kernels on the card
+(their staged design ranks the tasks in its own launches). The expert FFN is a batched ``torch.matmul``, as the reference
 computes it with einsums outside any Pallas kernel.
 """
 from __future__ import annotations
@@ -154,10 +159,7 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         queues = dispatch_queues(mc)
     impl = resolve_route_impl(queues.route_impl)
     fab = info.mesh
-    if fab.is_multiprocess:
-        raise NotImplementedError(
-            "moe_dcra on a distributed fabric is not ported yet (ROADMAP.md "
-            "queue 1, item 4: scale-out remainders)")
+    xchg = fab.exchange                 # None on a virtual fabric
     if x.device != fab.device:
         raise ValueError(f"x is on {x.device}, the fabric on {fab.device}")
     E, K = mc.num_experts, mc.top_k
@@ -192,12 +194,16 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
     d_axis = info.data_axis if info.fsdp else None
 
     # ---- the shard_map boundary: per-shard blocks --------------------
+    # (S below is this process's shard count: all of them on a virtual
+    # fabric)
     xb = fab.shard(x, x_spec)                                # [S, b, s, D]
     wg = fab.shard(params["wg"], (e_dim, d_axis, f_axis))
     wu = fab.shard(params["wu"], (e_dim, d_axis, f_axis))
     wd = fab.shard(params["wd"], (e_dim, f_axis, d_axis))
-    router = params["router"]
-    S, dev = fab.n_devices, x.device
+    # the router replicated a shard: its gradient is summed over the
+    # shards in shard order on every fabric
+    router = fab.shard(params["router"], (None, None))      # [S, D, E]
+    S, dev = fab.n_local_shards, x.device
     shards = torch.arange(S, device=dev)[:, None]
 
     tp_gather = tp_ffn and n_tp > 1 and seq_mode is not None
@@ -249,7 +255,8 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
             "dispatch", owner, all_valid, [eids_f % E_local, src_f], n_ex,
             cap1)
         xb1 = gather_rows(xf, tok1)
-        xr, (eidr,) = fused_all_to_all(xb1, [eid1], fab.shape, group_dims)
+        xr, (eidr,) = fused_all_to_all(xb1, [eid1], fab.shape, group_dims,
+                                       xchg)
     else:
         # ---- stage 1 over the group (tile-NoC) ------------------------
         e_coord = owner % n_ex
@@ -259,7 +266,7 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
             [p_coord, eids_f % E_local, src_f], n_ex, cap1)
         xb1 = gather_rows(xf, tok1)
         xs1, (pcs, eids1) = fused_all_to_all(xb1, [pc1, eid1], fab.shape,
-                                             group_dims)
+                                             group_dims, xchg)
         n1 = xs1.shape[1]
         # ---- stage 2 over the pod axis (die-NoC portal) ---------------
         cap2 = queues.channel_cap("portal", n1, n_pod)
@@ -269,7 +276,7 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
                                         [eids1, arange1], n_pod, cap2)
         xb2 = gather_rows(xs1, slot1_of_s2)
         xr, (eidr,) = fused_all_to_all(xb2, [eid2], fab.shape,
-                                       fab.axis_dims(info.pod_axis))
+                                       fab.axis_dims(info.pod_axis), xchg)
 
     # ---- local expert execution (the owner computes) -----------------
     N_r = xr.shape[1]
@@ -294,11 +301,12 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
 
     # ---- return path (retrace the NoC route) -------------------------
     if not spans_pods:
-        yb1 = noc_all_to_all(ye, fab.shape, group_dims)
+        yb1 = noc_all_to_all(ye, fab.shape, group_dims, xchg)
     else:
-        y2 = noc_all_to_all(ye, fab.shape, fab.axis_dims(info.pod_axis))
+        y2 = noc_all_to_all(ye, fab.shape, fab.axis_dims(info.pod_axis),
+                            xchg)
         y1 = slot_scatter(y2, slot1_of_s2.clamp(min=0), slot1_of_s2 >= 0, n1)
-        yb1 = noc_all_to_all(y1, fab.shape, group_dims)
+        yb1 = noc_all_to_all(y1, fab.shape, group_dims, xchg)
 
     # combine at the source: task slot -> token, weighted by its gate
     rows = gather_rows(yb1, slot_of_task.clamp(min=0))
@@ -308,9 +316,11 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
     out.index_add_(0, (src_f + shards * T_l).reshape(-1),
                    (task_y * gates_f[..., None]).reshape(-1, D))
 
-    # aux: load-balance loss, averaged over all shards
+    # aux: load-balance loss, averaged over all shards (every shard's
+    # value gathered, so the mean adds them in one order on any fabric)
     frac = torch.nn.functional.one_hot(eids, E).float().sum(2).mean(1)
-    aux = (E * (frac * probs.mean(1)).sum(-1)).mean()
+    aux = fab.unshard((E * (frac * probs.mean(1)).sum(-1))[:, None],
+                      (fab.axis_names,)).mean()
     out = out.view(S, T_l, D)
     if do_slice:   # restore the expert-replicated layout
         out = fab.all_gather(out, info.expert_axis, 0)
@@ -320,12 +330,14 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
     out = fab.unshard(out, x_spec)
     if not return_stats:
         return out, aux
-    stats = DispatchStats(topk_ids=eids, e_local=E_local,
+    # the statistics are global: every shard's, gathered across processes
+    every = fab.gather_shards
+    stats = DispatchStats(topk_ids=every(eids), e_local=E_local,
                           expert_base=torch.from_numpy(
                               fab.axis_index(e_dim)).to(dev) * E_local,
-                          expert_rows=xe)
+                          expert_rows=None if xe is None else every(xe))
     for stage, (dest, valid, task_slot, n_buckets, cap) in seen.items():
-        stats.buckets[stage] = _bucket_counts(dest, valid, task_slot,
-                                              n_buckets)
+        stats.buckets[stage] = tuple(every(c) for c in _bucket_counts(
+            dest, valid, task_slot, n_buckets))
         stats.caps[stage] = cap
     return out, aux, stats

@@ -29,6 +29,19 @@ round loop exchanges through :attr:`Fabric.exchange`
 :meth:`Fabric.gsum` and tests convergence with :meth:`Fabric.global_any`;
 on a virtual fabric those are the local transpose, the local sum and the
 local test, unchanged.
+
+On a distributed fabric the ``shard_map`` helpers take and give this
+process's rows ``[L, ...]``: :meth:`Fabric.shard` cuts this process's
+blocks out of a global tensor every process holds, :meth:`Fabric.unshard`
+gives the global tensor back on every process, and the collectives
+gather over gloo only where their axes cross processes. Each of them is
+differentiable, and its gradient is the virtual fabric's: a crossing
+collective runs the virtual fabric's own operation on the gathered
+global tensor (:class:`_ViaGlobal`), so the backward is that operation's
+vector-Jacobian product on the gathered global gradient. A tensor every
+process holds whole (the global input of :meth:`Fabric.shard`, the
+output of :meth:`Fabric.unshard`) carries the same gradient on every
+process, that of the one global loss.
 """
 from __future__ import annotations
 
@@ -73,6 +86,73 @@ def balanced_slice(total: int, rank: int, world: int) -> Tuple[int, int]:
     base, rem = divmod(int(total), int(world))
     lo = rank * base + min(rank, rem)
     return lo, lo + base + (1 if rank < rem else 0)
+
+
+def _all_gather_grid(x: torch.Tensor, shape: Sequence[int],
+                     dims: Sequence[int], dim: int) -> torch.Tensor:
+    """Tiled ``all_gather`` of ``x [prod(shape), ...]`` over the grid
+    dims ``dims`` of ``shape`` along per-shard dimension ``dim``: every
+    shard gets its peers' blocks concatenated in their linear order over
+    ``dims``."""
+    n, rest = len(shape), list(x.shape[1:])
+    y = x.reshape(*shape, *rest)
+    others = [d for d in range(n) if d not in dims]
+    perm = (others + [n + i for i in range(dim)] + list(dims)
+            + [n + i for i in range(dim, len(rest))])
+    peers = math.prod(shape[d] for d in dims)
+    gathered = rest[:dim] + [peers * rest[dim]] + rest[dim + 1:]
+    g = y.permute(perm).reshape([shape[d] for d in others] + gathered)
+    for d in sorted(dims):              # the same on every peer
+        g = g.unsqueeze(d)
+    return g.expand(*shape, *gathered).reshape(x.shape[0], *gathered)
+
+
+def _process_rows(fab: "Fabric", t: torch.Tensor) -> torch.Tensor:
+    """This process's equal share of ``t``'s leading dimension, which
+    holds every process's rows in process order."""
+    per = t.shape[0] // fab.n_processes
+    return t[fab.process_index * per:(fab.process_index + 1) * per]
+
+
+class _ViaGlobal(torch.autograd.Function):
+    """``fn`` of a distributed fabric's global tensor, differentiable.
+
+    ``local_in``: ``x`` is this process's rows, gathered over gloo into
+    the global tensor ``fn`` takes; else ``x`` is global, held whole by
+    every process. ``local_out``: the result is this process's rows of
+    ``fn``'s; else the global result, on every process. ``fast``, when
+    given, computes the same result from ``x`` without the gather.
+
+    The backward is ``fn``'s vector-Jacobian product on the global
+    gradient (gathered from every process when the result is local rows)
+    and, for a local input, this process's rows of it: the virtual
+    fabric's gradient, computed by the same operation. ``fn`` must be
+    linear, as every layout operation is: its product is taken at zero,
+    so nothing of the forward is kept."""
+
+    @staticmethod
+    def forward(ctx, x, fab, fn, local_in, local_out, fast):
+        ctx.fab, ctx.fn = fab, fn
+        ctx.local_in, ctx.local_out = local_in, local_out
+        rows = x.shape[0] * (fab.n_processes if local_in else 1)
+        ctx.in_shape, ctx.dtype = (rows, *x.shape[1:]), x.dtype
+        if fast is not None:
+            return fast(x)
+        y = fn(fab.exchange.all_gather(x) if local_in else x)
+        return _process_rows(fab, y) if local_out else y
+
+    @staticmethod
+    def backward(ctx, g):
+        fab = ctx.fab
+        if ctx.local_out:
+            g = fab.exchange.all_gather(g.contiguous())
+        with torch.enable_grad():
+            z = torch.zeros(ctx.in_shape, dtype=ctx.dtype, device=g.device,
+                            requires_grad=True)
+            (gx,) = torch.autograd.grad(ctx.fn(z), z, g)
+        if ctx.local_in:
+            gx = _process_rows(fab, gx)
+        return gx, None, None, None, None, None
 
 
 @dataclass(frozen=True)
@@ -308,11 +388,19 @@ class Fabric:
 
     def shrink(self, keep: int) -> "Fabric":
         """:meth:`resize` onto the first ``keep`` shards: the host-loss
-        degrade of the serving tier (``repro/core/fabric.py:312-328``)."""
+        degrade of the serving tier (``repro/core/fabric.py:312-328``).
+        A distributed fabric keeps every process, each with ``keep /
+        n_processes`` shards; a ``keep`` that does not split over the
+        processes raises ``ValueError``."""
         keep = int(keep)
         if not 1 <= keep <= self.n_devices:
             raise ValueError(f"shrink keeps {keep} of {self.n_devices} "
                              f"devices — need 1 <= keep <= n_devices")
+        if keep % self.n_processes:
+            raise ValueError(f"shrink keeps {keep} of {self.n_devices} "
+                             f"shards, which do not split over "
+                             f"{self.n_processes} processes: a distributed "
+                             f"fabric keeps every process")
         return self.resize(keep)
 
     # ---- axes and the stacked-shard index helpers --------------------
@@ -353,13 +441,24 @@ class Fabric:
     def _index(self, axes: Axes, device) -> torch.Tensor:
         return torch.from_numpy(self.axis_index(axes)).to(device)
 
+    def _local_index(self, axes: Axes, device) -> torch.Tensor:
+        """:meth:`axis_index` of this process's shards ``[L]``."""
+        lo, hi = self.local_shards
+        return torch.from_numpy(self.axis_index(axes)[lo:hi]).to(device)
+
+    def _local_grid(self) -> Tuple[int, int]:
+        """``(t, lead)``: this process's rows are ``[lead, *shape[t:]]``,
+        whole trailing axes ``t..`` under ``lead`` consecutive indices of
+        the leading ones (row-major over ``shape[:t]``)."""
+        t = next(i for i in range(len(self.shape) + 1)
+                 if self.n_local_shards % math.prod(self.shape[i:]) == 0)
+        return t, self.n_local_shards // math.prod(self.shape[t:])
+
     # ---- the shard_map boundary ---------------------------------------
 
-    def shard(self, x: torch.Tensor, spec: Sequence[Axes]) -> torch.Tensor:
-        """Per-shard blocks of the global ``x`` under the partition spec
-        ``spec`` (one entry per dimension): ``[S, *block]``, a copy.
-        Shards not named on a dimension hold the same block."""
-        spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    def _shard_on(self, x: torch.Tensor, spec, rows=None) -> torch.Tensor:
+        """The blocks of global ``x`` under ``spec`` of the shards
+        ``rows`` (every shard when ``None``)."""
         nb = [self.axis_size(a) for a in spec]
         for n, size, a in zip(nb, x.shape, spec):
             if size % n:
@@ -370,25 +469,88 @@ class Fabric:
         nd = x.dim()
         view = view.permute([2 * i for i in range(nd)]
                             + [2 * i + 1 for i in range(nd)])
-        return view[tuple(self._index(a, x.device) for a in spec)]
+        idx = [self._index(a, x.device) for a in spec]
+        if rows is not None:
+            idx = [i[rows] for i in idx]
+        return view[tuple(idx)]
+
+    def shard(self, x: torch.Tensor, spec: Sequence[Axes]) -> torch.Tensor:
+        """Per-shard blocks of the global ``x`` under the partition spec
+        ``spec`` (one entry per dimension): ``[S, *block]``, a copy.
+        Shards not named on a dimension hold the same block. On a
+        distributed fabric every process holds ``x`` whole and gets its
+        own rows ``[L, *block]``; the gradient of ``x`` is the global
+        one on every process (its rows' gradients gathered, then added
+        as the virtual fabric adds them)."""
+        spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+        if not self.is_multiprocess:
+            return self._shard_on(x, spec)
+        lo, hi = self.local_shards
+        return _ViaGlobal.apply(x, self, lambda t: self._shard_on(t, spec),
+                                False, True,
+                                lambda t: self._shard_on(t, spec, slice(lo, hi)))
+
+    def _unshard_on(self, xs: torch.Tensor, spec, rows: np.ndarray,
+                    at: np.ndarray) -> torch.Tensor:
+        """The global array from the blocks of rows ``rows`` of ``xs``,
+        which are the global shards ``at``: one a block."""
+        nb = [self.axis_size(a) for a in spec]
+        blk = list(xs.shape[1:])
+        out = xs.new_empty(nb + blk)
+        at_t = torch.from_numpy(at).to(xs.device)
+        out[tuple(self._index(a, xs.device)[at_t] for a in spec)] = \
+            xs[torch.from_numpy(rows).to(xs.device)]
+        nd = len(blk)
+        out = out.permute([v for i in range(nd) for v in (i, nd + i)])
+        return out.reshape([n * b for n, b in zip(nb, blk)])
+
+    def _replica_rows(self, spec) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """The shards whose blocks :meth:`unshard` reads: ``(rep, mine)``.
+        ``rep`` are the global ones, at coordinate 0 over the axes the
+        spec does not name. ``mine`` are this process's local rows that
+        hold every block once (the first of each), ``None`` unless every
+        process holds every block, which is when no named axis crosses
+        processes."""
+        named = sorted({d for a in spec for d in self.axis_dims(a)})
+        free = [d for d in range(len(self.shape)) if d not in named]
+        rep = np.flatnonzero((self.coords[:, free] == 0).all(axis=1))
+        if not self.is_multiprocess:
+            return rep, rep
+        sizes = [self.shape[d] for d in named]
+        key = (np.ravel_multi_index(self.coords[:, named].T, sizes)
+               if named else np.zeros(self.n_devices, np.int64))
+        per = key.reshape(self.n_processes, self.n_local_shards)
+        n_blocks = math.prod(sizes)
+        if any(len(np.unique(k)) != n_blocks for k in per):
+            return rep, None
+        mine = per[self.process_index]
+        _, first = np.unique(mine, return_index=True)
+        return rep, np.sort(first)
 
     def unshard(self, xs: torch.Tensor, spec: Sequence[Axes]) -> torch.Tensor:
         """Inverse of :meth:`shard`: the global array from per-shard blocks
         ``[S, *block]``; over axes the spec does not name, the shard at
-        coordinate 0 gives the block."""
+        coordinate 0 gives the block. On a distributed fabric ``xs`` is
+        this process's rows and every process gets the global array:
+        gathered over gloo where a named axis crosses processes; where
+        none does, every process holds every block and assembles it from
+        its own shards (their replicas over the unnamed axes hold the
+        same values). The gradient goes to the coordinate-0 shards, as
+        on the virtual fabric."""
         spec = tuple(spec) + (None,) * (xs.dim() - 1 - len(spec))
-        named = {d for a in spec for d in self.axis_dims(a)}
-        rep = np.flatnonzero((self.coords[:, [d for d in range(len(self.shape))
-                                               if d not in named]] == 0)
-                             .all(axis=1))
-        nb = [self.axis_size(a) for a in spec]
-        blk = list(xs.shape[1:])
-        out = xs.new_empty(nb + blk)
-        rep_t = torch.from_numpy(rep).to(xs.device)
-        out[tuple(self._index(a, xs.device)[rep_t] for a in spec)] = xs[rep_t]
-        nd = len(blk)
-        out = out.permute([v for i in range(nd) for v in (i, nd + i)])
-        return out.reshape([n * b for n, b in zip(nb, blk)])
+        rep, mine = self._replica_rows(spec)
+        if not self.is_multiprocess:
+            return self._unshard_on(xs, spec, rep, rep)
+
+        def whole(t):
+            return self._unshard_on(t, spec, rep, rep)
+        fast = None
+        if mine is not None:
+            lo = self.local_shards[0]
+
+            def fast(t):
+                return self._unshard_on(t, spec, mine, mine + lo)
+        return _ViaGlobal.apply(xs, self, whole, True, False, fast)
 
     # ---- collectives of a shard_map body --------------------------------
 
@@ -396,22 +558,23 @@ class Fabric:
                    ) -> torch.Tensor:
         """Tiled ``all_gather`` over ``axes`` along per-shard dimension
         ``dim`` of ``x [S, ...]``: every shard gets its peers' blocks
-        concatenated in their linear order over ``axes``."""
-        dims = self.axis_dims(axes)
+        concatenated in their linear order over ``axes``. On a
+        distributed fabric ``x`` is this process's rows: over axes it
+        holds whole the gather is local, and only where an axis crosses
+        processes does it go over gloo."""
+        dims = [d for d in self.axis_dims(axes) if self.shape[d] > 1]
         if not dims:
             return x
-        n, rest = len(self.shape), list(x.shape[1:])
-        y = x.reshape(*self.shape, *rest)
-        others = [d for d in range(n) if d not in dims]
-        perm = (others + [n + i for i in range(dim)] + list(dims)
-                + [n + i for i in range(dim, len(rest))])
-        gathered = rest[:dim] + [self.axis_size(axes) * rest[dim]] + rest[dim + 1:]
-        g = y.permute(perm).reshape([self.shape[d] for d in others]
-                                    + gathered)
-        for d in sorted(dims):              # the same on every peer
-            g = g.unsqueeze(d)
-        return g.expand(*self.shape, *gathered).reshape(x.shape[0],
-                                                        *gathered)
+        if not self.is_multiprocess:
+            return _all_gather_grid(x, self.shape, dims, dim)
+        t, lead = self._local_grid()
+        if all(d >= t for d in dims):
+            grid = (lead,) + self.shape[t:]
+            return _all_gather_grid(x, grid, [d - t + 1 for d in dims], dim)
+
+        def whole(full):
+            return _all_gather_grid(full, self.shape, dims, dim)
+        return _ViaGlobal.apply(x, self, whole, True, True, None)
 
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """Sum of ``x [S, ...]`` over the peers along ``axes``, on each.
@@ -430,10 +593,7 @@ class Fabric:
             return y.sum(dim=dims, keepdim=True).expand_as(y).reshape(x.shape)
         if len(dims) == len(self.shape):
             return self.gsum(x)
-        # a process holds a row-major block of rows: whole trailing axes
-        # t.. under a part of the leading ones
-        t = next(i for i in range(len(self.shape) + 1)
-                 if self.n_local_shards % math.prod(self.shape[i:]) == 0)
+        t, lead = self._local_grid()
         inner, rest = self.shape[t:], x.shape[1:]
         y = x.reshape(-1, *inner, *rest)
         local = tuple(1 + d - t for d in dims if d >= t)
@@ -441,13 +601,13 @@ class Fabric:
             y = y.sum(dim=local, keepdim=True)
         cross = tuple(d for d in dims if d < t)
         if cross:
-            lead = self.n_local_shards // math.prod(inner)
-            full = self.gather_shards(y)
-            full = full.reshape(*self.shape[:t], *full.shape[1:])
-            full = full.sum(dim=cross, keepdim=True).expand_as(full)
-            y = full.reshape(-1, *full.shape[t:])
-            lo = self.process_index * lead
-            y = y[lo:lo + lead]
+            lead_shape = self.shape[:t]
+
+            def whole(full):
+                f = full.reshape(*lead_shape, *full.shape[1:])
+                f = f.sum(dim=cross, keepdim=True).expand_as(f)
+                return f.reshape(-1, *f.shape[t:])
+            y = _ViaGlobal.apply(y, self, whole, True, True, None)
         return y.expand(-1, *inner, *rest).reshape(x.shape)
 
     def shard_slice(self, x: torch.Tensor, axes: Axes, dim: int
@@ -455,7 +615,7 @@ class Fabric:
         """Each shard's block ``axis_index(axes)`` of ``axis_size(axes)``
         equal blocks along per-shard dimension ``dim`` (the inverse of
         :meth:`all_gather`; ``dynamic_slice_in_dim`` at the shard's
-        index)."""
+        index). On a distributed fabric, of this process's rows."""
         n = self.axis_size(axes)
         if n == 1:
             return x
@@ -465,4 +625,4 @@ class Fabric:
         v = x.reshape(*x.shape[:1 + dim], n, size // n, *x.shape[2 + dim:])
         v = v.movedim(1 + dim, 1)
         rows = torch.arange(x.shape[0], device=x.device)
-        return v[rows, self._index(axes, x.device)]
+        return v[rows, self._local_index(axes, x.device)]

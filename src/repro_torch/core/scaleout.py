@@ -15,6 +15,11 @@ of :func:`repro_torch.core.routing.noc_all_to_all` over shards spread
 over processes. The blocks whose destination shard lives in this process
 are permuted locally; only the others cross, in one ``all_to_all_single``
 a call. Every process must issue the same collectives in the same order.
+The exchange is differentiable: the tiled all_to_all is its own inverse
+(block ``b`` of shard ``g`` lands in shard ``b``'s block ``g``), so its
+backward is the same exchange of the gradient. :meth:`ProcessExchange.agree`
+settles a decision every process must make alike (one that reads a clock
+or the card): rank 0's value, broadcast.
 """
 from __future__ import annotations
 
@@ -118,7 +123,8 @@ class ProcessExchange:
     last :meth:`reset_stats`: ``calls``, ``bytes_out`` (what this process
     sent across the boundary), and the host seconds of ``wait_s`` (the
     card finishing the work queued before the exchange), ``d2h_s``,
-    ``gloo_s`` and ``h2d_s``."""
+    ``gloo_s`` and ``h2d_s``; and over the :meth:`agree` calls,
+    ``agree_calls`` and their host seconds ``agree_s``."""
 
     def __init__(self, fabric):
         self.fabric = fabric
@@ -130,7 +136,8 @@ class ProcessExchange:
 
     def reset_stats(self) -> None:
         self.stats = {"calls": 0, "bytes_out": 0, "wait_s": 0.0,
-                      "d2h_s": 0.0, "gloo_s": 0.0, "h2d_s": 0.0}
+                      "d2h_s": 0.0, "gloo_s": 0.0, "h2d_s": 0.0,
+                      "agree_calls": 0, "agree_s": 0.0}
 
     def _plan(self, shape, dims) -> dict:
         key = (shape, dims)
@@ -150,10 +157,17 @@ class ProcessExchange:
         shards; ``shape`` the global fabric shape of the round, ``dims``
         the axes exchanged over): shard ``d`` receives block ``d`` of
         every peer, in peer order, as the local transpose does on one
-        process."""
+        process. Differentiable: the gradient takes the same exchange."""
+        shape = tuple(int(s) for s in shape)
+        dims = tuple(int(d) for d in dims)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Exchange.apply(x, self, shape, dims)
+        return self._exchange(x, shape, dims)
+
+    def _exchange(self, x: torch.Tensor, shape: Tuple[int, ...],
+                  dims: Tuple[int, ...]) -> torch.Tensor:
         import torch.distributed as dist
-        plan = self._plan(tuple(int(s) for s in shape),
-                          tuple(int(d) for d in dims))
+        plan = self._plan(shape, dims)
         n_loc, total, c = x.shape
         nb = plan["blocks"]
         xb = x.reshape(n_loc * nb, (total // nb) * c)
@@ -190,6 +204,26 @@ class ProcessExchange:
         st["h2d_s"] += t4 - t3
         return out.view(n_loc, total, c)
 
+    def agree(self, value, pick=None):
+        """One decision, the same on every process: rank 0's ``value``
+        (a picklable object), broadcast over gloo. With ``pick``, every
+        process's value is gathered and ``pick(values)``, a function of
+        the list in rank order, decides on each. Every process calls it
+        at the same point of its program."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        if pick is None:
+            box = [value]
+            dist.broadcast_object_list(box, src=0)
+            got = box[0]
+        else:
+            values = [None] * self.fabric.n_processes
+            dist.all_gather_object(values, value)
+            got = pick(values)
+        self.stats["agree_calls"] += 1
+        self.stats["agree_s"] += time.perf_counter() - t0
+        return got
+
     def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         """``x`` reduced over the processes by ``op`` (``"sum"`` or
         ``"max"``), on ``x``'s device; gloo reduces in one order for
@@ -202,10 +236,27 @@ class ProcessExchange:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every process's ``x [L, ...]`` concatenated in process order:
-        ``[n_processes * L, ...]`` on ``x``'s device."""
+        ``[n_processes * L, ...]`` on ``x``'s device. Not differentiable:
+        the fabric's collectives carry the gradient around it."""
         import torch.distributed as dist
         host = x.detach().to("cpu").contiguous()
         parts = [torch.empty_like(host)
                  for _ in range(self.fabric.n_processes)]
         dist.all_gather(parts, host)
         return torch.cat(parts).to(x.device)
+
+
+class _Exchange(torch.autograd.Function):
+    """:meth:`ProcessExchange.__call__` under autograd: the exchange of
+    the gradient with the same plan is the backward (the all_to_all is an
+    involution)."""
+
+    @staticmethod
+    def forward(ctx, x, xchg, shape, dims):
+        ctx.xchg, ctx.shape, ctx.dims = xchg, shape, dims
+        return xchg._exchange(x, shape, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.xchg._exchange(g.contiguous(), ctx.shape, ctx.dims),
+                None, None, None)

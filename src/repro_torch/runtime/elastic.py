@@ -45,14 +45,14 @@ class ShardedArray:
     def global_array(self) -> torch.Tensor:
         """The global array (a collective on a distributed fabric)."""
         fab = self.sharding.fabric
-        return fab.unshard(fab.gather_shards(self.blocks), self.sharding.spec)
+        return fab.unshard(self.blocks, self.sharding.spec)
 
 
 def place(x: torch.Tensor, sharding: Sharding) -> ShardedArray:
     """Lay the global array ``x`` out under ``sharding``, on its fabric's
     device (``jax.device_put`` with a sharding)."""
     fab = sharding.fabric
-    blocks = fab.local_rows(fab.shard(x.to(fab.device), sharding.spec))
+    blocks = fab.shard(x.to(fab.device), sharding.spec)
     return ShardedArray(blocks, sharding)
 
 

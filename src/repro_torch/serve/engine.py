@@ -48,6 +48,16 @@ round-function cache. Life of a request:
 MoE dispatch rides the same loop through :class:`MoEService`: token
 blocks are batched to a fixed [B, S, D] shape class and dispatched
 through one ``moe_dcra`` callable on the service's fabric.
+
+On a distributed :class:`~repro_torch.core.fabric.Fabric` every process
+builds the same server and submits the same requests in the same order;
+each holds its own shards' rows of the resident graphs, and the launches'
+exchanges cross processes. Every decision that reads a clock or the card
+(deadline expiry, the backoff park and its sleep, which inflight batches
+are ready, the outcome of a launch) is made once and agreed
+(:meth:`~repro_torch.core.scaleout.ProcessExchange.agree`), so every
+process launches the same batches, pairs the same exchanges, and returns
+the same responses and statistics.
 """
 from __future__ import annotations
 
@@ -183,8 +193,8 @@ class ProgramServer:
     admission). ``options`` is the :class:`LaunchOptions` default applied
     to EVERY launch the server issues (pre-warm included) — queue sizing
     (``options.queues``), ``route_impl``, ``round_mode="pipelined"``, all
-    of it (the reference's legacy ``axis=`` / ``launch_queues=`` kwargs
-    are not ported; the port takes ``options=`` only). The default
+    of it; the legacy ``axis=`` / ``launch_queues=`` kwargs fill it
+    instead (both with ``options=`` raise ``ValueError``). The default
     factor-4 sizing is
     drop-free for the serving graphs, which is what keeps batched results
     bit-identical to standalone runs.
@@ -239,9 +249,11 @@ class ProgramServer:
     """
 
     def __init__(self, fabric: Fabric, graphs: Dict[str, CSR], *,
+                 axis: str = "data",
                  batch_width: int = 4,
                  tenant_queues: Optional[Dict[str, QueueConfig]] = None,
                  default_queues: Optional[QueueConfig] = None,
+                 launch_queues: Optional[QueueConfig] = None,
                  max_rounds: Optional[int] = None,
                  moe: Optional["MoEService"] = None,
                  options: Optional[LaunchOptions] = None,
@@ -250,11 +262,15 @@ class ProgramServer:
         if not isinstance(fabric, Fabric):
             raise TypeError(f"fabric must be a repro_torch Fabric, got "
                             f"{type(fabric).__name__}")
-        if fabric.is_multiprocess:
-            raise NotImplementedError(
-                "ProgramServer on a distributed fabric is not ported yet "
-                "(ROADMAP.md queue 1, item 4: scale-out remainders)")
-        self.options = (options or LaunchOptions()).resolve()
+        if options is not None:
+            if axis != "data" or launch_queues is not None:
+                raise ValueError("options= conflicts with explicit axis=/"
+                                 "launch_queues=: fold them into the "
+                                 "LaunchOptions")
+            self.options = options.resolve()
+        else:
+            self.options = LaunchOptions(axis=axis,
+                                         queues=launch_queues).resolve()
         self.fabric = fabric
         self.axis = self.options.axis
         self.graphs = dict(graphs)
@@ -417,15 +433,31 @@ class ProgramServer:
         """The tenant product graph of ``gname`` packed for ``prog``'s
         edge direction on the current fabric, once: every launch of the
         class passes it as ``setup=`` (results and cache keys are those
-        of a launch that packs for itself)."""
+        of a launch that packs for itself). On a distributed fabric only
+        this process's rows reach its device."""
         key = (gname, prog.undirected)
         got = self._resident.get(key)
         if got is None:
             tg = tenant_graph(self.graphs[gname], self.batch_width)
             got = self._resident[key] = resident_setup(
                 _graph_setup(tg, self._n_dev, undirected=prog.undirected,
-                             seed=self.options.seed), self.fabric.device)
+                             seed=self.options.seed), self.fabric.device,
+                fabric=self.fabric)
         return got
+
+    def _agree(self, value, pick=None):
+        """``value`` as every process of the fabric decides it (rank 0's,
+        or ``pick`` of all of them): a decision that reads a clock or
+        the card must come out the same in every process. ``value`` on a
+        virtual fabric."""
+        xchg = self.fabric.exchange
+        return value if xchg is None else xchg.agree(value, pick)
+
+    def _agree_error(self, err: Optional[str]) -> Optional[str]:
+        """A launch failed if it failed in any process: the first
+        process's error, in rank order."""
+        return self._agree(err, pick=lambda errs: next(
+            (e for e in errs if e is not None), None))
 
     # ---- the serving loop ------------------------------------------------
 
@@ -501,13 +533,16 @@ class ProgramServer:
         go to the park instead (step() readmits them once ``not_before``
         passes)."""
         now = time.perf_counter()
-        for e in reversed(entries):
-            if e.not_before > now:
+        park = self._agree([e.not_before > now for e in entries])
+        for e, parked in zip(reversed(entries), reversed(park)):
+            if parked:
                 self._parked.append(e)
             else:
                 self._former.push_front(e)
         if self._parked:
-            self._parked.sort(key=lambda e: e.not_before)
+            order = self._agree(sorted(range(len(self._parked)),
+                                       key=lambda i: self._parked[i].not_before))
+            self._parked = [self._parked[i] for i in order]
 
     def _unpark(self) -> None:
         """Move parked entries whose backoff elapsed back to the head of
@@ -515,9 +550,10 @@ class ProgramServer:
         if not self._parked:
             return
         now = time.perf_counter()
-        ready = [e for e in self._parked if e.not_before <= now]
+        due = self._agree([e.not_before <= now for e in self._parked])
+        ready = [e for e, d in zip(self._parked, due) if d]
         if ready:
-            self._parked = [e for e in self._parked if e.not_before > now]
+            self._parked = [e for e, d in zip(self._parked, due) if not d]
             for e in reversed(ready):
                 self._former.push_front(e)
 
@@ -530,8 +566,10 @@ class ProgramServer:
             return entries, []
         now = time.perf_counter()
         live, dead = [], []
-        for e in entries:
-            if e.deadline is not None and now >= e.deadline:
+        late = self._agree([e.deadline is not None and now >= e.deadline
+                            for e in entries])
+        for e, past in zip(entries, late):
+            if past:
                 dead.append(self._finish(e, Response(
                     e.req.req_id, e.req.tenant, STATUS_FAILED,
                     retriable=False,
@@ -562,9 +600,11 @@ class ProgramServer:
         out: List[Response] = []
         requeue: List[_Pending] = (requeue_to if requeue_to is not None
                                    else [])
-        for e in entries:
+        late = self._agree([e.deadline is not None and t1 >= e.deadline
+                            for e in entries])
+        for e, past in zip(entries, late):
             rid = e.req.req_id
-            if e.deadline is not None and t1 >= e.deadline:
+            if past:
                 out.append(self._finish(e, Response(
                     e.req.req_id, e.req.tenant, STATUS_FAILED,
                     retriable=False,
@@ -668,6 +708,9 @@ class ProgramServer:
             # take the server down; its riders are settled at harvest
             # (retried when budget remains, failed otherwise)
             ib.error = f"{type(e).__name__}: {e}"
+        ib.error = self._agree_error(ib.error)
+        if ib.error is not None:
+            ib.launch = None
             return ib
         c1 = program_mod.cache_stats()
         ib.cache_hits = c1["hits"] - c0["hits"]
@@ -691,6 +734,7 @@ class ProgramServer:
                 (state,), app_stats = ib.launch.result()
             except Exception as e:  # noqa: BLE001 — device-side failure
                 err = f"{type(e).__name__}: {e}"
+            err = self._agree_error(err)
         if err is not None:
             self._breaker_observe(ib.klass, ok=False)
             return self._settle_failed(ib.entries, err, ib.t_launch)
@@ -720,7 +764,8 @@ class ProgramServer:
         so responses stream in launch order under any depth. Non-blocking
         unless ``block`` (then the whole window settles)."""
         out: List[Response] = []
-        while self._window and (block or self._window[0].ready()):
+        while self._window and (block or self._agree(
+                self._window[0].ready())):
             out.extend(self._harvest(self._window.popleft()))
         return out
 
@@ -769,7 +814,8 @@ class ProgramServer:
                 and self._parked:
             # everything is backing off: sleep to the earliest retry
             # gate instead of busy-spinning drain()
-            wait = self._parked[0].not_before - time.perf_counter()
+            wait = self._agree(self._parked[0].not_before
+                               - time.perf_counter())
             if wait > 0:
                 time.sleep(wait)
         return out
@@ -785,10 +831,13 @@ class ProgramServer:
                 # degrades to a dispatch exception here
                 raise InjectedFailure(f"{kind} fault at launch {idx} (moe)")
             outs, hit = self.moe.dispatch([r.payload for r in reqs])
+            err = None
         except Exception as e:  # noqa: BLE001
+            err = f"{type(e).__name__}: {e}"
+        err = self._agree_error(err)
+        if err is not None:
             self._breaker_observe(entries[0].klass, ok=False)
-            return self._settle_failed(entries, f"{type(e).__name__}: {e}",
-                                       t0)
+            return self._settle_failed(entries, err, t0)
         self._breaker_observe(entries[0].klass, ok=True)
         t1 = time.perf_counter()
         dt = t1 - t0
@@ -846,7 +895,9 @@ class MoEService:
     dispatch: the port has no tracer, so a warm call leaves it
     unchanged) — the MoE analogue of the round-function cache's
     no-re-build assertion. ``params`` are the port's MoE weights on the
-    fabric's device."""
+    fabric's device. On a distributed fabric every process dispatches the
+    same payloads and gets every request's output (``moe_dcra`` returns
+    the global ``out``)."""
 
     def __init__(self, cfg, params, info, *, batch: int = 4, seq: int = 16):
         if cfg.moe is None:

@@ -312,7 +312,7 @@ def prewarm_program(prog: TaskProgram, data, fabric: Fabric, **kwargs
 
 def dcra_scatter(dest, vals, n: int, fabric: Fabric, *,
                  options: Optional[LaunchOptions] = None, op: str = "add",
-                 task: str = "T3"):
+                 task: str = "T3", **legacy):
     """Owner-routed scatter-reduce in one NoC round.
 
     ``dest`` / ``vals`` ``[E]`` (numpy or tensors) are the tasks, shard
@@ -327,8 +327,9 @@ def dcra_scatter(dest, vals, n: int, fabric: Fabric, *,
     Sizing as in the reference: ``options.queues`` names the per-``task``
     IQ, ``options.cap`` is honoured exactly (flat path only),
     ``options.capacity_factor`` defaults to 1.5 here. ``round_mode`` has
-    no effect: a scatter is a single round."""
-    opts = resolve_options(options)
+    no effect: a scatter is a single round. ``legacy`` takes the
+    reference's launch kwargs in place of ``options=``."""
+    opts = resolve_options(options, **legacy)
     if not isinstance(fabric, Fabric):
         raise TypeError(f"fabric must be a repro_torch Fabric, got "
                         f"{type(fabric).__name__}")
@@ -399,7 +400,7 @@ def run_program(prog: TaskProgram, data, fabric: Fabric, *,
                 options: Optional[LaunchOptions] = None,
                 params: Optional[Mapping] = None,
                 max_rounds: Optional[int] = None, setup=None,
-                donate_states: bool = False, dataset=None):
+                donate_states: bool = False, dataset=None, **legacy):
     """Execute a :class:`TaskProgram` on ``fabric``. Graph programs return
     ``(state_arrays, AppStats)``, each state unpacked to global order as
     float64: the :meth:`ProgramLaunch.result` of :func:`launch_program`
@@ -409,8 +410,11 @@ def run_program(prog: TaskProgram, data, fabric: Fabric, *,
     the same states, rounds and per-round stats as lockstep.
     ``options.config`` is resolved against a graph program's graph, and
     against a stream program's ``dataset`` (its graph or element stream;
-    ``data`` when not given)."""
-    opts = resolve_options(options)
+    ``data`` when not given). ``legacy`` takes the reference's launch
+    kwargs (``axis=``, ``capacity_factor=``, ``cap=``, ``seed=``,
+    ``route_impl=``, ``round_mode=`` ...) in place of ``options=``
+    (:func:`~repro_torch.sparse.options.resolve_options`)."""
+    opts = resolve_options(options, **legacy)
     _check_launch(fabric)
     if prog.mode == "single":
         return _launch_stream(prog, data, fabric, opts, dict(params or {}),
@@ -425,7 +429,7 @@ def launch_program(prog: TaskProgram, data, fabric: Fabric, *,
                    options: Optional[LaunchOptions] = None,
                    params: Optional[Mapping] = None,
                    max_rounds: Optional[int] = None, setup=None,
-                   donate_states: bool = False) -> "ProgramLaunch":
+                   donate_states: bool = False, **legacy) -> "ProgramLaunch":
     """Launch a graph :class:`TaskProgram` without waiting for it: a
     :class:`ProgramLaunch` device future (``repro/sparse/program.py:
     573-603``). Cache key, admission and results are those of
@@ -441,11 +445,12 @@ def launch_program(prog: TaskProgram, data, fabric: Fabric, *,
     the launch's input state tensors to its round loop, which reuses
     them for its states instead of holding them to the end (see
     :func:`_build_graph_fn`); it joins the cache key, only when set. Stream
-    programs have no launch future: this raises for them."""
+    programs have no launch future: this raises for them. ``legacy`` as
+    for :func:`run_program`."""
     if prog.mode == "single":
         raise ValueError("launch_program handles graph programs only; "
                          "stream programs run through run_program")
-    opts = resolve_options(options)
+    opts = resolve_options(options, **legacy)
     _check_launch(fabric)
     return _launch_graph(prog, data, fabric, opts, dict(params or {}),
                          max_rounds, setup, donate_states)
@@ -487,15 +492,18 @@ def _launch_stream(prog: TaskProgram, data, fab: Fabric,
 # graph launches: edges and states onto the device, the device future
 # ---------------------------------------------------------------------------
 
-def resident_setup(setup, device) -> tuple:
+def resident_setup(setup, device, fabric: Optional[Fabric] = None) -> tuple:
     """A :func:`_graph_setup` moved onto ``device`` once: ``(n_local,
     src_slot [S, E_max] int64, dst [S, E_max] int32, w [S, E_max]
-    float32, E_max)``. Launches given it as ``setup=`` copy no edges."""
+    float32, E_max)``. Launches given it as ``setup=`` copy no edges.
+    With a distributed ``fabric`` only its process's rows ``[L, E_max]``
+    are moved, and the setup serves launches on that fabric alone."""
     n_local, src_slot, dst, w, e_max = setup
     device = torch.device(device)
+    mine = fabric.local_rows if fabric is not None else (lambda a: a)
 
     def on(a):
-        return torch.as_tensor(a).to(device).view(-1, e_max)
+        return mine(torch.as_tensor(a).view(-1, e_max)).to(device)
     return n_local, on(src_slot).long(), on(dst), on(w), e_max
 
 
@@ -579,7 +587,11 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
         setup = _graph_setup(g, n_dev, undirected=prog.undirected,
                              seed=opts.seed)
     n_local, src_slot, dst, w, E_max = setup
-    if (int(np.prod(dst.shape)) != n_dev * E_max
+    # a resident setup (tensors) holds this process's rows, a host
+    # packing every row
+    resident = isinstance(dst, torch.Tensor)
+    rows = fab.n_local_shards if resident else n_dev
+    if (int(np.prod(dst.shape)) != rows * E_max
             or n_local != -(-n // n_dev)):
         raise ValueError("setup= was packed for another graph or fabric")
     pod_axis, queues = _launch_sizing(opts, lc, fab, prog.task,
@@ -607,11 +619,11 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
     fn = _cached(key, lambda: _build_graph_fn(
         prog, fab, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
         round_mode, donate_states))
-    if isinstance(dst, torch.Tensor):
+    if resident:
         if dst.device != fab.device:
             raise ValueError(f"setup= lies on {dst.device}, the fabric on "
                              f"{fab.device}")
-        edges, pins = [fab.local_rows(e) for e in (src_slot, dst, w)], ()
+        edges, pins = [src_slot, dst, w], ()
     else:        # only this process's rows reach its device
         edges, pins = _to_device([fab.local_rows(np.reshape(e, (n_dev, E_max)))
                                   for e in (src_slot, dst, w)], fab.device)

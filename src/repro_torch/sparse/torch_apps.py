@@ -1,7 +1,8 @@
 """The seven apps as TaskPrograms on virtual shards (counterpart of
-``repro/sparse/jax_apps.py:76-447``): BFS, SSSP, WCC, PageRank and
-k-core as graph programs, SpMV and histogram as one-round streams, and
-the serving tier's tenant-batched BFS and SSSP.
+``repro/sparse/jax_apps.py``): BFS, SSSP, WCC, PageRank and k-core as
+graph programs, SpMV and histogram as one-round streams, the serving
+tier's tenant-batched BFS and SSSP, and the single-device edge-parallel
+executables ``spmv_torch``, ``histogram_torch`` and ``bfs_torch``.
 
 Each graph rule sees the shard on the leading dimension: state
 ``[S, n_local]`` and ``src_slot [S, E_max]``, so a rule reads its
@@ -24,6 +25,44 @@ from .options import LaunchOptions
 # through this module, as in the reference
 from .program import (AppStats, TaskProgram, dcra_scatter,  # noqa: F401
                       run_program)
+
+
+# ---------------------------------------------------------------------------
+# single-device (edge-parallel) executables
+# ---------------------------------------------------------------------------
+
+def spmv_torch(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+               x: torch.Tensor, n: int) -> torch.Tensor:
+    """``y = A @ x`` over the edge list: ``y[r] = sum vals * x[cols]``
+    over the edges of row ``r`` (``repro/sparse/jax_apps.py:46``), on
+    the tensors' device."""
+    contrib = vals * x[cols]
+    return contrib.new_zeros(n).index_add_(0, rows, contrib)
+
+
+def histogram_torch(elements: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """The count of each bin in ``[0, n_bins)``, of ``elements``' type;
+    ids outside the bins are dropped, as ``segment_sum`` drops them
+    (``repro/sparse/jax_apps.py:50``)."""
+    keep = (elements >= 0) & (elements < n_bins)
+    return torch.bincount(elements[keep].long(), minlength=n_bins).to(
+        elements.dtype)
+
+
+def bfs_torch(rows: torch.Tensor, cols: torch.Tensor, n: int, root: int,
+              max_levels: Optional[int] = None) -> torch.Tensor:
+    """Edge-parallel BFS, one scatter-min round a level
+    (``repro/sparse/jax_apps.py:55-75``): float32 hop counts from
+    ``root``, inf where it does not reach in ``max_levels`` levels (``n``
+    when not given)."""
+    dist = torch.full((n,), float("inf"), device=rows.device)
+    dist[root] = 0.0
+    for level in range(max_levels or n):
+        cand = torch.where(dist[rows] == level, level + 1.0, float("inf"))
+        upd = torch.full_like(dist, float("inf")).scatter_reduce_(
+            0, cols.long(), cand, "amin")
+        dist = torch.minimum(dist, upd)
+    return dist
 
 
 # ---------------------------------------------------------------------------
@@ -237,76 +276,80 @@ PROGRAMS = {p.name: p for p in (BFS, SSSP, WCC, PAGERANK, SPMV, HISTOGRAM,
 
 def dcra_bfs(g: CSR, root: int, fabric, *,
              options: Optional[LaunchOptions] = None, max_rounds: int = 128,
-             setup=None) -> Tuple[np.ndarray, AppStats]:
-    """Distributed BFS: hop count from root, -1 if unreachable."""
+             setup=None, **legacy) -> Tuple[np.ndarray, AppStats]:
+    """Distributed BFS: hop count from root, -1 if unreachable.
+    ``legacy`` takes the reference's launch kwargs in place of
+    ``options=`` (see :func:`~repro_torch.sparse.options.resolve_options`),
+    as every ``dcra_*`` app does."""
     (d,), stats = run_program(BFS, g, fabric, options=options,
                               params={"root": int(root)},
-                              max_rounds=max_rounds, setup=setup)
+                              max_rounds=max_rounds, setup=setup, **legacy)
     return np.where(np.isfinite(d), d, -1).astype(np.int64), stats
 
 
 def dcra_sssp(g: CSR, root: int, fabric, *,
               options: Optional[LaunchOptions] = None, max_rounds: int = 256,
-              setup=None) -> Tuple[np.ndarray, AppStats]:
+              setup=None, **legacy) -> Tuple[np.ndarray, AppStats]:
     """Distributed SSSP (frontier Bellman-Ford): inf if unreachable."""
     (d,), stats = run_program(SSSP, g, fabric, options=options,
                               params={"root": int(root)},
-                              max_rounds=max_rounds, setup=setup)
+                              max_rounds=max_rounds, setup=setup, **legacy)
     return d.astype(np.float64), stats
 
 
 def dcra_wcc(g: CSR, fabric, *, options: Optional[LaunchOptions] = None,
-             max_rounds: int = 128, setup=None
+             max_rounds: int = 128, setup=None, **legacy
              ) -> Tuple[np.ndarray, AppStats]:
     """Distributed WCC via min-label propagation over both directions."""
     if g.n > (1 << 24):
         # labels ride the f32 payload; ids above 2^24 would collide
         raise ValueError(f"dcra_wcc supports up to 2^24 vertices, got {g.n}")
     (lab,), stats = run_program(WCC, g, fabric, options=options,
-                                max_rounds=max_rounds, setup=setup)
+                                max_rounds=max_rounds, setup=setup, **legacy)
     return lab.astype(np.int64), stats
 
 
 def dcra_pagerank(g: CSR, fabric, damping: float = 0.85, iters: int = 20,
-                  *, options: Optional[LaunchOptions] = None, setup=None
-                  ) -> Tuple[np.ndarray, AppStats]:
+                  *, options: Optional[LaunchOptions] = None, setup=None,
+                  **legacy) -> Tuple[np.ndarray, AppStats]:
     """Distributed PageRank: ``iters`` owner-routed rounds, dangling mass
     redistributed uniformly each round (as the oracle)."""
     (rank, _, _), stats = run_program(
         PAGERANK, g, fabric, options=options,
-        params={"damping": float(damping), "iters": int(iters)}, setup=setup)
+        params={"damping": float(damping), "iters": int(iters)}, setup=setup,
+        **legacy)
     return rank, stats
 
 
 def dcra_kcore(g: CSR, k: int, fabric, *,
                options: Optional[LaunchOptions] = None, max_rounds: int = 128,
-               setup=None) -> Tuple[np.ndarray, AppStats]:
+               setup=None, **legacy) -> Tuple[np.ndarray, AppStats]:
     """Distributed k-core by iterative peel: each vertex's within-core
     degree (in + out, each stored edge direction counted) or -1 if
     peeled out of the k-core."""
     (deg, alive), stats = run_program(
         KCORE, g, fabric, options=options, params={"k": float(k)},
-        max_rounds=max_rounds, setup=setup)
+        max_rounds=max_rounds, setup=setup, **legacy)
     return np.where(alive > 0, deg, -1).astype(np.int64), stats
 
 
 def dcra_spmv(g: CSR, x: np.ndarray, fabric, *,
-              options: Optional[LaunchOptions] = None
+              options: Optional[LaunchOptions] = None, **legacy
               ) -> Tuple[np.ndarray, int]:
     """Distributed ``y = A @ x`` in one owner-routed round: ``(y [n]
     float32, dropped tasks)``. The capacity factor defaults to 2.0;
     ``options.seed`` fixes the edge shuffle; ``options.config`` resolves
     against ``g``."""
     y, stats = run_program(SPMV, (g, x), fabric, options=options,
-                           dataset=g)
+                           dataset=g, **legacy)
     return y, stats.total_drops
 
 
 def dcra_histogram(elements: np.ndarray, n_bins: int, fabric, *,
-                   options: Optional[LaunchOptions] = None
+                   options: Optional[LaunchOptions] = None, **legacy
                    ) -> Tuple[np.ndarray, int]:
     """Distributed histogram in one owner-routed round (the histogram
     kernel on one shard): ``(counts [n_bins] float32, dropped tasks)``."""
     y, stats = run_program(HISTOGRAM, (elements, n_bins), fabric,
-                           options=options, dataset=elements)
+                           options=options, dataset=elements, **legacy)
     return y, stats.total_drops

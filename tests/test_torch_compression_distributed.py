@@ -117,8 +117,9 @@ def dp_run(fab, compress):
     w_star = torch.from_numpy(rng.normal(0, 1, (16,)).astype(np.float32))
     X = torch.from_numpy(rng.normal(0, 1, (64, 16)).astype(np.float32))
     y = X @ w_star
-    Xs = fab.local_rows(fab.shard(X, ("data",)))
-    ys = fab.local_rows(fab.shard(y, ("data",)))
+    # a distributed fabric's shard gives this process's rows
+    Xs = fab.shard(X, ("data",))
+    ys = fab.shard(y, ("data",))
     n_loc = fab.n_local_shards
     opt = AdamW(lr=lambda s: 0.05, weight_decay=0.0, clip_norm=0.0)
     params = {"w": torch.zeros(16)}

@@ -701,15 +701,27 @@ def test_distributed_without_a_card_raises(monkeypatch):
 
 
 def test_server_and_moe_refuse_a_distributed_fabric():
+    """Nothing is refused any more: ``ProgramServer`` and ``MoEService``
+    (over ``moe_dcra``) construct on a distributed fabric, joining no
+    group until they launch (``tests/test_torch_serve_distributed.py``
+    and ``tests/test_torch_moe_distributed.py`` run them across
+    processes). What a distributed fabric still refuses is a host loss
+    whose kept shards do not split over its processes."""
     from repro_torch.configs import get_config
-    from repro_torch.core.dispatch import MeshInfo, moe_dcra
-    from repro_torch.serve import ProgramServer
+    from repro_torch.core.dispatch import MeshInfo
+    from repro_torch.serve import MoEService, ProgramServer
+    import torch.distributed as dist
     fab = _distributed(Fabric.fake(4, device="cpu"), 2)
     g = tdata.erdos_renyi(32, avg_degree=4, seed=5)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ProgramServer(fab, {"g": g})
     info = MeshInfo(_distributed(Fabric.virtual(
         (2, 2, 1), ("data", "expert", "tp"), device="cpu"), 2))
     cfg = get_config("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        moe_dcra(None, torch.zeros(1, 2, cfg.d_model), cfg, info)
+    moe = MoEService(cfg, None, info, batch=2, seq=4)
+    srv = ProgramServer(fab, {"g": g}, moe=moe)
+    assert srv.fabric is fab and srv.moe is moe
+    assert moe.info.mesh.n_processes == 2
+    assert (srv.queue_depth, srv.inflight_depth) == (0, 0)
+    assert srv.fabric.shrink(2).local_shards == (0, 1)
+    with pytest.raises(ValueError, match="do not split over 2 processes"):
+        srv.fabric.shrink(3)
+    assert not dist.is_initialized()

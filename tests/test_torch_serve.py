@@ -479,13 +479,22 @@ def _delta(program, c0):
     return [c1[k] - c0[k] for k in ("hits", "misses", "kernel_traces")]
 
 
-def scenario(api):
+def scenario(api, shape=(8,), names=("data",), pod=None):
     """The serving contract on one package. ``api`` names its modules and
-    how to build a fabric of a shape; returns JSON-able results."""
+    how to build a fabric of a shape; returns JSON-able results. The
+    fabric is ``shape`` over ``names`` (8 flat shards by default); ``pod``
+    names the axis every launch routes its portal stage over (none: the
+    flat path), and host losses keep half the shards."""
     program, serve, Opts = api.program, api.serve, api.LaunchOptions
     g = wiki(api.datasets)
-    fab = api.fabric((8,))
+    fab = api.fabric(shape, names)
+    n_dev = int(np.prod(shape))
     res = {}
+
+    def O(**kw):
+        """The launch options of a part on this fabric (``None``: the
+        server's and the launches' defaults)."""
+        return Opts(pod_axis=pod, **kw) if pod or kw else None
 
     # ---- one launch sequence: cache deltas, keys, donation ---------------
     program.clear_cache()
@@ -495,18 +504,18 @@ def scenario(api):
         c0 = program.cache_stats()
         k0 = len(program.cache_keys())
         if step == "warm":
-            new = program.prewarm_program(api.BFS, g, fab,
+            new = program.prewarm_program(api.BFS, g, fab, options=O(),
                                           params={"root": len(seq)})
             assert len(new) == len(program.cache_keys()) - k0
         elif step == "short":
             program.launch_program(api.SSSP, g, fab, params={"root": 1},
-                                   max_rounds=3).result()
+                                   max_rounds=3, options=O()).result()
         else:
             launch = program.launch_program(
                 api.BFS, g, fab, params={"root": 5},
                 donate_states=step == "donate",
-                options=Opts(round_mode="pipelined" if step == "pipelined"
-                             else "lockstep"))
+                options=O(round_mode="pipelined" if step == "pipelined"
+                          else "lockstep"))
             assert launch.result() is launch.result()
         seq.append([step, len(program.cache_keys()) - k0,
                     program.cache_keys()[-1][-1] == "donate"]
@@ -517,7 +526,8 @@ def scenario(api):
     reqs = [serve.Request(i, TENANTS[i % 4], "bfs" if i % 2 == 0 else "sssp",
                           "wiki", root=(i * 13) % g.n) for i in range(16)]
     program.clear_cache()
-    srv = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH)
+    srv = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
+                              options=O())
     warm = srv.prewarm(("bfs", "sssp"))
     res["warm"] = [{f"{p}/{gn}": len(k) for (p, gn), k in warm.items()},
                    program.cache_stats(),
@@ -530,16 +540,16 @@ def scenario(api):
     res["standalone"] = [
         bool(np.array_equal(program.run_program(
             api.BFS if r.program == "bfs" else api.SSSP, g, fab,
-            params={"root": r.root})[0][0], resp.result))
+            params={"root": r.root}, options=O())[0][0], resp.result))
         for r, resp in zip(reqs, rs)]
 
     # ---- the depth / fairness sweep and the pipelined server -------------
     sweep = {}
     for name, so, opts in (
-            ("fifo2", dict(inflight_depth=2), None),
-            ("fifo4", dict(inflight_depth=4), None),
-            ("drr3", dict(inflight_depth=3, fairness="drr"), None),
-            ("pipelined", {}, Opts(round_mode="pipelined"))):
+            ("fifo2", dict(inflight_depth=2), O()),
+            ("fifo4", dict(inflight_depth=4), O()),
+            ("drr3", dict(inflight_depth=3, fairness="drr"), O()),
+            ("pipelined", {}, O(round_mode="pipelined"))):
         c0 = program.cache_stats()
         s2 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
                                  options=opts,
@@ -552,7 +562,7 @@ def scenario(api):
 
     # ---- donated buffers: their own keys, the same responses -------------
     s3 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                             serve_options=serve.ServeOptions(
+                             options=O(), serve_options=serve.ServeOptions(
                                  inflight_depth=3, donate_buffers=True))
     k0 = len(program.cache_keys())
     s3.prewarm(("bfs", "sssp"))
@@ -575,7 +585,7 @@ def scenario(api):
     program.launch_program = poisoned
     try:
         s4 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                                 serve_options=serve.ServeOptions(
+                                 options=O(), serve_options=serve.ServeOptions(
                                      inflight_depth=3))
         f_reqs = ([serve.Request(i, f"a{i}", "bfs", "wiki", root=1)
                    for i in range(4)]
@@ -591,9 +601,8 @@ def scenario(api):
     res["poison"] = [_sig(rs4), _ledger(s4), max(window)]
 
     # ---- admission control and attributed drops --------------------------
-    n_dev = 8
     s5 = serve.ProgramServer(
-        fab, {"wiki": g}, batch_width=WIDTH,
+        fab, {"wiki": g}, batch_width=WIDTH, options=O(),
         tenant_queues={"acme": api.QueueConfig.from_cap(
             g.nnz // n_dev + 1, "serve"),
             "globex": api.QueueConfig.from_cap(2, "serve")})
@@ -606,9 +615,12 @@ def scenario(api):
     s5.stats.verify()
     res["admission"] = [[None if r is None else _sig([r])[0] for r in subs],
                         _sig(drained), _ledger(s5)]
+    # an explicit cap is the flat path's; the portal path drops at a
+    # small factor
+    tight = (api.QueueConfig.from_cap(2, "T3") if pod is None
+             else api.QueueConfig.from_factor(0.25, "T3"))
     s6 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                             options=Opts(queues=api.QueueConfig.from_cap(
-                                 2, "T3")))
+                             options=O(queues=tight))
     rs6 = s6.run([serve.Request(i, f"t{i}", "bfs", "wiki", root=i)
                   for i in range(2)])
     s6.stats.verify()
@@ -620,9 +632,9 @@ def scenario(api):
               + [serve.Request(8 + i, TENANTS[i % 4], "bfs", "wiki",
                                root=(i * 7) % g.n) for i in range(8)])
     program.clear_cache()
-    plan = serve.seeded_chaos_plan(5, 4, keep_devices=4)
+    plan = serve.seeded_chaos_plan(5, 4, keep_devices=n_dev // 2)
     s7 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                             serve_options=serve.ServeOptions(
+                             options=O(), serve_options=serve.ServeOptions(
                                  max_retries=3, breaker_threshold=1),
                              failure_plan=plan)
     s7.prewarm(("bfs", "sssp"))
@@ -634,22 +646,23 @@ def scenario(api):
                     s7.fabric.n_devices, _delta(program, c0)]
 
     # ---- host loss with batches in flight; retries run out; deadlines ----
-    plan = serve.ServeFailurePlan(at={1: "host_loss"}, keep_devices=4)
+    plan = serve.ServeFailurePlan(at={1: "host_loss"},
+                                  keep_devices=n_dev // 2)
     s8 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                             serve_options=serve.ServeOptions(
+                             options=O(), serve_options=serve.ServeOptions(
                                  inflight_depth=2, max_retries=1),
                              failure_plan=plan)
     rs8 = s8.run(c_reqs[8:])
     s8.stats.verify()
     s9 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                             serve_options=serve.ServeOptions(max_retries=2),
+                             options=O(), serve_options=serve.ServeOptions(max_retries=2),
                              failure_plan=serve.ServeFailurePlan(
                                  at={0: "launch", 1: "launch", 2: "launch"}))
     rs9 = s9.run([serve.Request(i, TENANTS[i], "bfs", "wiki", root=1 + i)
                   for i in range(4)])
     s9.stats.verify()
     s10 = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                              serve_options=serve.ServeOptions(
+                              options=O(), serve_options=serve.ServeOptions(
                                   deadline_s=1e-6))
     rs10 = s10.run([serve.Request(i, "t", "bfs", "wiki", root=i)
                     for i in range(2)])
@@ -688,7 +701,7 @@ def scenario(api):
     for retries in (0, 1):
         stub = StubMoE()
         sm = serve.ProgramServer(fab, {"wiki": g}, batch_width=WIDTH,
-                                 moe=stub,
+                                 moe=stub, options=O(),
                                  serve_options=serve.ServeOptions(
                                      max_retries=retries),
                                  failure_plan=serve.ServeFailurePlan(
@@ -709,7 +722,8 @@ def port_api():
         program=tprogram, serve=serve, LaunchOptions=LaunchOptions,
         QueueConfig=QueueConfig, datasets=tdata, BFS=torch_apps.BFS,
         SSSP=torch_apps.SSSP,
-        fabric=lambda shape: Fabric.virtual(shape, ("data",), device="cpu"))
+        fabric=lambda shape, names: Fabric.virtual(shape, names,
+                                                   device="cpu"))
 
 
 SCRIPT = r"""
@@ -728,7 +742,7 @@ from test_torch_serve import scenario
 api = types.SimpleNamespace(
     program=program, serve=serve, LaunchOptions=LaunchOptions,
     QueueConfig=QueueConfig, datasets=datasets, BFS=BFS, SSSP=SSSP,
-    fabric=lambda shape: make_mesh(shape, ('data',)))
+    fabric=lambda shape, names: make_mesh(shape, names))
 print('RESULT ' + json.dumps(scenario(api)))
 """
 
