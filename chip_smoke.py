@@ -11,6 +11,7 @@
     python3 chip_smoke.py --recurrent          # phase 18 alone (after the build)
     python3 chip_smoke.py --dryrun             # phase 19 alone (after the build)
     python3 chip_smoke.py --serve-out          # phase 20 alone (after the build)
+    python3 chip_smoke.py --repeat [SRC] [--deterministic]  # OLMoE run twice
 
 Phases, each reporting on its own lines; any failure raises and the
 script exits non-zero with no result line:
@@ -190,9 +191,12 @@ script exits non-zero with no result line:
    layer, a difference only at a near tie), the scatter ``staged``
    and launched 2 x 2 times a layer a step (forward, remat's
    recompute), no flash launch (training takes the torch attention
-   path), drops a layer, ms a step, tokens/s and peak bytes of steps
-   2-3; (b) ``launch/train.py``'s ``main`` on reduced granite-8b, 20
-   steps at peak 3e-3, warmup 5: the loss below 0.7 of its first; (c)
+   path), drops a layer; step 1 run a second time from the same weights
+   and batch, its loss, every gradient leaf and every parameter after
+   it bit-identical to the first run's; ms a step, tokens/s and peak
+   bytes of steps 2-3; (b) ``launch/train.py``'s ``main`` on reduced
+   granite-8b, 20 steps at peak 3e-3, warmup 5: the loss below 0.7 of
+   its first; (c)
    ``run_training`` of the same trainer with a failure at step 7 and a
    checkpoint every 5 steps: one restart, final step 20, the losses of
    the run without the failure;
@@ -246,7 +250,8 @@ script exits non-zero with no result line:
    (``long_flash_check``), and the
    measured model's logits held within ``logit_bound`` of its torch
    attention path (prefill), or no farther than ``logit_bound`` beyond
-   the plain sort route's from the float32 forward's (OLMoE);
+   the plain sort route's from the float32 forward's and bit-identical
+   to a second run of itself (OLMoE);
 20. the serving tier and the MoE layer on a distributed fabric: two
    worker processes (``--serve-out-worker``, started after the build)
    share the card as one ``Fabric.distributed`` ``("portal", "data")``
@@ -4228,9 +4233,9 @@ TRAIN_TOKENS = (2, 4096)           # TRAIN_4K cut from batch 256
 TRAIN_STEPS = 3
 #: step 1 on the kernel path against the sort route: the loss within this
 #: share of itself, every gradient leaf within this share of its max|g|
-#: (the bounds the CPU tests hold the port to the reference by: the runs
-#: differ in the order of float32 sums, here ``index_add_``'s atomics in
-#: the combine and in ``gather_rows``' backward)
+#: (the bounds the CPU tests hold the port to the reference by; the two
+#: routes admit the same tasks and no sum adds by index, so where they
+#: route alike they agree bit for bit)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
 #: (b) the CLI: reduced granite-8b at tests/test_system.py's peak and warmup
 TRAIN_CLI = ["--arch", "granite-8b", "--reduced", "--steps", "20",
@@ -4244,18 +4249,20 @@ RESTART_AT, RESTART_EVERY, RESTART_REL = 7, 5, 1e-6
 
 
 class KeepGrads:
-    """An optimiser that hands every call to ``opt`` and keeps host
-    copies of the gradients of its first call (``self.grads``)."""
+    """An optimiser that hands every call to ``opt`` and keeps copies of
+    the gradients of its first call (``self.grads``; ``keep``: in host
+    memory unless named)."""
 
-    def __init__(self, opt):
+    def __init__(self, opt, keep=None):
         self.opt, self.grads, self.calls = opt, None, 0
+        self.keep = keep or host_copy
 
     def init(self, params):
         return self.opt.init(params)
 
     def update(self, grads, state, params):
         if not self.calls:
-            self.grads = host_copy(grads)
+            self.grads = self.keep(grads)
         self.calls += 1
         return self.opt.update(grads, state, params)
 
@@ -4303,6 +4310,16 @@ class RoutingSpy:
 def host_copy(tree):
     """A copy of each tensor of ``tree`` in host memory."""
     return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+
+def same_bits(a, b):
+    """``(bit-identical, max|a - b|)`` of two tensors of one shape."""
+    ints = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+    import torch
+    t = getattr(torch, ints[a.element_size()])
+    equal = a.dtype == b.dtype and torch.equal(a.contiguous().view(t),
+                                               b.contiguous().view(t))
+    return equal, 0.0 if equal else float((a.float() - b.float()).abs().max())
 
 
 def grads_held(got, want, device):
@@ -4357,6 +4374,46 @@ def params_held(params, want, p0, grads, lr1, eps, device):
     return worst, worst_firm, firm_n / total
 
 
+def train_step_again(model, params, p0, batch, loss, grads):
+    """Step 1 on the kernel path once more, from the host copy ``p0`` and
+    the same batch: the loss, every gradient leaf (``grads``, the first
+    run's host copies) and every parameter after the step (``params``,
+    the first run's) must equal the first run's bit for bit, since no sum
+    on the path adds in an order that changes from run to run. Returns
+    the second run's ``(params, state)`` and its optimiser."""
+    import torch
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    t0 = time.perf_counter()
+    first = {k: v.detach().clone() for k, v in params.items()}
+    with torch.no_grad():
+        for k, v in model.paths().items():
+            v.copy_(p0[k])
+    opt = KeepGrads(default_optimizer(),
+                    keep=lambda t: {k: v.detach().clone()
+                                    for k, v in t.items()})
+    step = make_train_step(model, opt)
+    params = model.paths()
+    params, state, metrics = step(params, opt.init(params), batch)
+    again = float(metrics["loss"])
+    apart = {}
+    for what, one, two in (("gradient", grads, opt.grads),
+                           ("parameter", first, params)):
+        for k, v in one.items():
+            same, d = same_bits(v.to(two[k].device), two[k])
+            if not same:
+                apart[f"{what} {k}"] = d
+    torch.cuda.synchronize()
+    if apart or again != loss:
+        raise AssertionError(f"train step 1 run twice: loss {loss!r} vs "
+                             f"{again!r}; {len(apart)} leaves differ "
+                             f"({dict(list(apart.items())[:4])})")
+    log(f"train {MOE_ARCH} step 1 run twice from the same weights and batch: "
+        f"loss {again!r}, all {len(grads)} gradient leaves and "
+        f"{len(first)} parameter leaves after the step bit-identical "
+        f"(held; {time.perf_counter() - t0:.2f} s) [{SMI}]")
+    return params, state, opt.opt
+
+
 def train_olmoe(device, totals):
     """(a) OLMoE-1B-7B at full width, depth cut to ``TRAIN_LAYERS``, remat
     ``block``, ``moe_dcra`` on phase 10's fused packaging at the config's
@@ -4365,8 +4422,10 @@ def train_olmoe(device, totals):
     step 1 held to the same step on the plain sort route from the same
     weights and batch (loss, every gradient leaf, the parameters after)
     where the two runs route alike, every routing difference held to a
-    near tie; steps 2-3 timed with nothing patched in (the same state,
-    a train step over the plain optimiser)."""
+    near tie, and step 1 on the kernel path run again from the same
+    weights and batch, bit-identical (:func:`train_step_again`); steps
+    2-3 timed with nothing patched in (the same state, a train step over
+    the plain optimiser)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -4450,9 +4509,7 @@ def train_olmoe(device, totals):
                                          .abs().max())
                                    for k, w in p1_s.items()), float("nan"),
                                float("nan"))
-    del g_s, p1_s, p0
-    opt.grads = None
-    step = make_train_step(model, opt.opt)    # steps 2..: the optimiser alone
+    del g_s, p1_s
     first_launches = first.launches["bucket_scatter"]
     if (first_launches != 4 * L or first.launches["flash_attention"]
             or spy_k.drops != spy_s.drops):
@@ -4470,6 +4527,11 @@ def train_olmoe(device, totals):
         f"{counts}; drops a layer {spy_k.drops} (capacity factor "
         f"{cfg.moe.capacity_factor}); step 1 {ms_1:.1f} ms, sort route "
         f"{ms_s:.1f} ms (both instrumented) [{SMI}]")
+    del state, metrics
+    params, state, optimiser = train_step_again(model, params, p0, batch,
+                                                losses[0], opt.grads)
+    del p0, opt
+    step = make_train_step(model, optimiser)    # steps 2..: the optimiser alone
 
     times = []
     torch.cuda.reset_peak_memory_stats()
@@ -5037,8 +5099,9 @@ def dry_held(tag, model, shape_name, m, device):
     float32 forward's (same weights, the plain sort route) than the bf16
     forward on the plain sort route, plus :func:`logit_bound` (as
     :func:`lm_forwards` holds a bf16 stack that amplifies a reordered
-    sum), the kernel route's distance to a second run of itself
-    reported; ``None`` where the step runs no kernel."""
+    sum) and equal bit for bit to a second run of itself, its distance
+    to the sort route reported; ``None`` where the step runs no
+    kernel."""
     import dataclasses
     import torch
     from repro_torch.core.dispatch import dispatch_queues
@@ -5080,19 +5143,22 @@ def dry_held(tag, model, shape_name, m, device):
     scale = float(ref.abs().max())
     e_k, e_p = (float((t.float() - ref).abs().max()) / scale
                 for t in (got, want))
-    apart, rerun = (float((got.float() - t.float()).abs().max()) / scale
-                    for t in (want, again))
+    apart, rerun = (same_bits(got, t)[1] / scale for t in (want, again))
     if not (e_k <= e_p + bound and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{tag}: the kernel route's logits {e_k:.4e} of "
                              f"max|logit| from the float32 forward's, the "
                              f"sort route's {e_p:.4e}; bound {bound:.4e} "
                              f"more")
+    if not same_bits(got, again)[0]:
+        raise AssertionError(f"{tag}: the kernel route run twice gives "
+                             f"logits {rerun:.4e} of max|logit| apart")
     return (f"logits {tuple(got.shape)} {got.dtype}: from the float32 "
             f"forward's (sort route) kernel route {e_k:.4e}, sort route "
             f"{e_p:.4e} of max|logit| (held: kernel <= sort + {bound:.4e}); "
-            f"kernel vs sort route {apart:.4e}, kernel route run twice "
-            f"{rerun:.4e}, reported "
-            f"({time.perf_counter() - t0:.2f} s)")
+            f"kernel route run twice {rerun:.4e} (held: bit-identical); "
+            f"kernel vs sort route {apart:.4e} "
+            f"({'bit-identical' if same_bits(got, want)[0] else 'differs'}"
+            f", reported) ({time.perf_counter() - t0:.2f} s)")
 
 
 def dry_measured(device, totals):
@@ -5729,6 +5795,119 @@ def train_only():
     return 0
 
 
+def repeat_runs(src, det):
+    """``--repeat [SRC] [--deterministic]``: does OLMoE-1B-7B repeat bit
+    for bit on the card with the ``repro_torch`` under ``SRC`` (default
+    this checkout's; another checkout's, to compare two trees)? (a) phase
+    19's measured model (4 of 16 layers, bf16 activations over float32
+    weights, seed 0, ``moe_measure_fabric``) on train_4k cut to [2,
+    4096]: two forwards on the kernel route and one on the sort route,
+    their largest logit differences over max|logit|; (b) phase 17's step
+    1 (4 layers, float32, seed 1, [2, 4096], the fused packaging) twice
+    from the same weights and batch: the loss, and the gradient leaves
+    and parameters after the step that differ. ``--deterministic`` runs
+    both under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` and prints each warning once."""
+    import contextlib
+    import dataclasses
+    import warnings
+    import torch
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import MeshInfo, dispatch_queues
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_info_for
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    from repro_torch.launch.train import reduced_batch
+    from repro_torch.models.model_zoo import build_model
+    global SMI
+    SMI = card_name()
+    log(f"repeat: repro_torch from {Path(repro_torch.__file__).parent}, "
+        f"deterministic mode {det} [{SMI}]")
+    _build.build()
+    device = torch.device(*CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with contextlib.ExitStack() as stack:
+        caught = stack.enter_context(warnings.catch_warnings(record=True))
+        warnings.simplefilter("always")
+        if det:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            stack.callback(torch.use_deterministic_algorithms, False)
+        t0 = time.perf_counter()
+        cfg = dryrun.with_depth(get_config(MOE_ARCH), 4)
+        info = mesh_info_for(cfg, Fabric.virtual(
+            *dryrun.moe_measure_fabric(cfg), device=device))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        model = build_model(cfg, mesh_info=info, dtype=torch.bfloat16,
+                            device=device).init(gen)
+        shape = dataclasses.replace(
+            {s.name: s for s in cfg.shape_cells()}["train_4k"],
+            global_batch=2, seq_len=4096)
+        batch = reduced_batch(cfg, cfg, shape, 0, device)
+        sort_q = dataclasses.replace(dispatch_queues(cfg.moe),
+                                     route_impl="sort")
+        with torch.no_grad():
+            a, _ = model.forward(batch, kernel=False)
+            b, _ = model.forward(batch, kernel=False)
+            with RoutingSpy(info, (2, 4096), 0, sort_q):
+                c, _ = model.forward(batch, kernel=False)
+        scale = float(a.float().abs().max())
+        (same_ab, d_ab), (same_ac, d_ac) = same_bits(a, b), same_bits(a, c)
+        log(f"repeat (a) bf16 forward {tuple(a.shape)}: run twice "
+            f"{'bit-identical' if same_ab else 'differs'} ({d_ab / scale:.4e}"
+            f" of max|logit| {scale:.4f}); kernel vs sort route "
+            f"{'bit-identical' if same_ac else 'differs'} "
+            f"({d_ac / scale:.4e}); {time.perf_counter() - t0:.2f} s [{SMI}]")
+        del model, a, b, c, batch
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  num_layers=TRAIN_LAYERS)
+        _, fshape, names, kw = MOE_PACKAGINGS[0]
+        info = MeshInfo(Fabric.virtual(fshape, names, device=device), **kw)
+        gen.manual_seed(SEED)
+        model = build_model(cfg, mesh_info=info).init(gen)
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in lm_batch(cfg, TRAIN_TOKENS).items()}
+        p0 = host_copy(model.paths())
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                for k, p in model.paths().items():
+                    p.copy_(p0[k])
+            opt = KeepGrads(default_optimizer())
+            step = make_train_step(model, opt)
+            _, _, metrics = step(model.paths(), opt.init(model.paths()),
+                                 batch)
+            runs.append((float(metrics["loss"]), opt.grads,
+                         host_copy(model.paths())))
+            del metrics
+        (l1, g1, q1), (l2, g2, q2) = runs
+        for what, one, two in (("gradient", g1, g2), ("parameter", q1, q2)):
+            diffs = {k: same_bits(one[k], two[k])[1] / max(float(
+                one[k].abs().max()), 1e-30) for k in one
+                if not same_bits(one[k], two[k])[0]}
+            worst = max(diffs, key=diffs.get) if diffs else None
+            log(f"repeat (b) train step 1 twice: {what} leaves differing "
+                f"{len(diffs)} of {len(one)}"
+                + (f", the most {worst} at {diffs[worst]:.4e} of its max"
+                   if worst else ""))
+        log(f"repeat (b) train step 1 twice: loss {l1!r} vs {l2!r} "
+            f"({'equal' if l1 == l2 else 'differs'}); "
+            f"{time.perf_counter() - t0:.2f} s [{SMI}]")
+    seen = set()
+    for w in caught:
+        msg = f"{w.category.__name__}: {str(w.message)[:400]}"
+        if msg not in seen:
+            seen.add(msg)
+            log(f"repeat: warned {msg}")
+    return 0
+
+
 def recurrent_only():
     """``--recurrent``: the build and phase 18 alone; its launch counts
     are printed, no kernel table."""
@@ -5867,6 +6046,10 @@ def main() -> int:
         return recurrent_only()
     if sys.argv[1:2] == ["--dryrun"]:
         return dry_only()
+    if sys.argv[1:2] == ["--repeat"]:
+        args = [a for a in sys.argv[2:] if a != "--deterministic"]
+        return repeat_runs(args[0] if args else ROOT / "src",
+                           "--deterministic" in sys.argv)
     if sys.argv[1:2] == ["--serve-out"]:
         return serve_out_only()
     if sys.argv[1:2] == ["--serve-out-worker"]:

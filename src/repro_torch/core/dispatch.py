@@ -36,8 +36,8 @@ from ..models.common import swiglu
 from ..models.moe import topk
 from .fabric import Fabric
 from .queues import QueueConfig
-from .routing import (bucket, fused_all_to_all, gather_rows, noc_all_to_all,
-                      resolve_route_impl, slot_scatter)
+from .routing import (bucket, fused_all_to_all, gather_rows, inverse_map,
+                      noc_all_to_all, resolve_route_impl, slot_scatter, sum_k)
 
 
 def dispatch_queues(moe_cfg) -> QueueConfig:
@@ -143,6 +143,21 @@ def _expert_ffn(xe, wg, wu, wd, fab: Fabric, tp_axis, n_tp):
     return y
 
 
+def combine(yb1: torch.Tensor, slot_of_task: torch.Tensor,
+            gates_f: torch.Tensor, k: int) -> torch.Tensor:
+    """The combine at the source (``repro/core/dispatch.py:272-275``):
+    each task's returned row (its slot in ``yb1``; -1, dropped: a zero
+    row) weighted by its gate, and token t's tasks ``t*k .. t*k+k-1``
+    added in k order from zeros, as the reference's ``segment_sum`` adds
+    them on the CPU. ``yb1 [S, N, D]``, ``slot_of_task`` and ``gates_f
+    [S, T*k]`` -> float32 ``[S, T, D]``. No accumulate-by-index op runs,
+    forward or backward, so the sums repeat bit for bit on the card."""
+    s, n, d = yb1.shape
+    rows = gather_rows(yb1, slot_of_task, inverse_map(slot_of_task, n))
+    task_y = torch.where((slot_of_task >= 0)[..., None], rows, 0.0).float()
+    return sum_k((task_y * gates_f[..., None]).view(s, -1, k, d))
+
+
 def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
              queues: Optional[QueueConfig] = None,
              return_stats: bool = False):
@@ -204,7 +219,6 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
     # shards in shard order on every fabric
     router = fab.shard(params["router"], (None, None))      # [S, D, E]
     S, dev = fab.n_local_shards, x.device
-    shards = torch.arange(S, device=dev)[:, None]
 
     tp_gather = tp_ffn and n_tp > 1 and seq_mode is not None
     if tp_gather:
@@ -249,12 +263,15 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
             seen[stage] = (dest, valid, task_slot, n_buckets, cap)
         return ints, task_slot
 
+    # Every gather below passes its inverse (each row's readers in order:
+    # a bucket's task_slot), so its gradient is gathered back and added
+    # in a fixed order; token t's K tasks are t*K..t*K+K-1 (src_f).
     if not spans_pods:
         # ---- single-stage fused a2a (tile-NoC) ------------------------
         (eid1, tok1), slot_of_task = _route(
             "dispatch", owner, all_valid, [eids_f % E_local, src_f], n_ex,
             cap1)
-        xb1 = gather_rows(xf, tok1)
+        xb1 = gather_rows(xf, tok1, slot_of_task, K)
         xr, (eidr,) = fused_all_to_all(xb1, [eid1], fab.shape, group_dims,
                                        xchg)
     else:
@@ -264,7 +281,7 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         (pc1, eid1, tok1), slot_of_task = _route(
             "dispatch", e_coord, all_valid,
             [p_coord, eids_f % E_local, src_f], n_ex, cap1)
-        xb1 = gather_rows(xf, tok1)
+        xb1 = gather_rows(xf, tok1, slot_of_task, K)
         xs1, (pcs, eids1) = fused_all_to_all(xb1, [pc1, eid1], fab.shape,
                                              group_dims, xchg)
         n1 = xs1.shape[1]
@@ -272,9 +289,10 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         cap2 = queues.channel_cap("portal", n1, n_pod)
         arange1 = torch.arange(n1, device=dev, dtype=torch.int32).expand(
             S, -1).contiguous()
-        (eid2, slot1_of_s2), _ = _route("portal", pcs.clamp(min=0), pcs >= 0,
-                                        [eids1, arange1], n_pod, cap2)
-        xb2 = gather_rows(xs1, slot1_of_s2)
+        (eid2, slot1_of_s2), slot2_of_s1 = _route(
+            "portal", pcs.clamp(min=0), pcs >= 0, [eids1, arange1], n_pod,
+            cap2)
+        xb2 = gather_rows(xs1, slot1_of_s2, slot2_of_s1)
         xr, (eidr,) = fused_all_to_all(xb2, [eid2], fab.shape,
                                        fab.axis_dims(info.pod_axis), xchg)
 
@@ -291,9 +309,9 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         cap_e = queues.channel_cap("expert", N_r, E_local)
         arange_r = torch.arange(N_r, device=dev, dtype=torch.int32).expand(
             S, -1).contiguous()
-        (srce,), _ = _route("expert", eidr.clamp(min=0), validr, [arange_r],
-                            E_local, cap_e)
-        xe = gather_rows(xr, srce)
+        (srce,), slote_of_r = _route("expert", eidr.clamp(min=0), validr,
+                                     [arange_r], E_local, cap_e)
+        xe = gather_rows(xr, srce, slote_of_r)
         ye_b = _expert_ffn(xe.view(S, E_local, cap_e, D).to(xb.dtype),
                            wg, wu, wd, fab, info.tp_axis, n_tp)
         ye = slot_scatter(ye_b.reshape(S, E_local * cap_e, D),
@@ -308,13 +326,7 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         y1 = slot_scatter(y2, slot1_of_s2.clamp(min=0), slot1_of_s2 >= 0, n1)
         yb1 = noc_all_to_all(y1, fab.shape, group_dims, xchg)
 
-    # combine at the source: task slot -> token, weighted by its gate
-    rows = gather_rows(yb1, slot_of_task.clamp(min=0))
-    task_y = torch.where((slot_of_task >= 0)[..., None], rows,
-                         0.0).float()
-    out = torch.zeros(S * T_l, D, device=dev)
-    out.index_add_(0, (src_f + shards * T_l).reshape(-1),
-                   (task_y * gates_f[..., None]).reshape(-1, D))
+    out = combine(yb1, slot_of_task, gates_f, K)       # [S, T_l, D] f32
 
     # aux: load-balance loss, averaged over all shards (every shard's
     # value gathered, so the mean adds them in one order on any fabric)

@@ -114,6 +114,23 @@ def _process_rows(fab: "Fabric", t: torch.Tensor) -> torch.Tensor:
     return t[fab.process_index * per:(fab.process_index + 1) * per]
 
 
+class _Take(torch.autograd.Function):
+    """``x[index]`` for an index that reads no element twice; the gradient
+    is put back by a copy, where advanced indexing's own gradient adds by
+    index (atomics on the card, in an order that changes from run to
+    run)."""
+
+    @staticmethod
+    def forward(ctx, x, *index):
+        ctx.shape, ctx.index = x.shape, index
+        return x[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = g.new_zeros(ctx.shape).index_put_(ctx.index, g)
+        return (gx,) + (None,) * len(ctx.index)
+
+
 class _ViaGlobal(torch.autograd.Function):
     """``fn`` of a distributed fabric's global tensor, differentiable.
 
@@ -458,21 +475,34 @@ class Fabric:
 
     def _shard_on(self, x: torch.Tensor, spec, rows=None) -> torch.Tensor:
         """The blocks of global ``x`` under ``spec`` of the shards
-        ``rows`` (every shard when ``None``)."""
+        ``rows`` (every shard when ``None``). Each dimension splits into
+        its axes' sizes (row-major in the tuple's order) and its block,
+        the axes move to their fabric positions and the blocks broadcast
+        over the axes ``spec`` does not name: no index, so the gradient
+        is a sum over those replicas, in a fixed order."""
         nb = [self.axis_size(a) for a in spec]
         for n, size, a in zip(nb, x.shape, spec):
             if size % n:
                 raise ValueError(f"dimension {size} does not split over "
                                  f"{a!r} ({n} shards)")
-        blk = [size // n for n, size in zip(nb, x.shape)]
-        view = x.reshape([v for pair in zip(nb, blk) for v in pair])
-        nd = x.dim()
-        view = view.permute([2 * i for i in range(nd)]
-                            + [2 * i + 1 for i in range(nd)])
-        idx = [self._index(a, x.device) for a in spec]
-        if rows is not None:
-            idx = [i[rows] for i in idx]
-        return view[tuple(idx)]
+        split, fabric_dim = [], []
+        for a, n, size in zip(spec, nb, x.shape):
+            dims = self.axis_dims(a)
+            split += [self.shape[d] for d in dims] + [size // n]
+            fabric_dim += list(dims) + [None]
+        at = {d: i for i, d in enumerate(fabric_dim) if d is not None}
+        blocks = [i for i, d in enumerate(fabric_dim) if d is None]
+        grid = x.reshape(split).permute([at[d] for d in sorted(at)] + blocks)
+        for d in range(len(self.shape)):
+            if d not in at:
+                grid = grid.unsqueeze(d)
+        blk = grid.shape[len(self.shape):]
+        grid = grid.expand(*self.shape, *blk)
+        if rows is None:
+            return grid.clone(memory_format=torch.contiguous_format).view(
+                self.n_devices, *blk)
+        at_rows = torch.from_numpy(self.coords[rows].T.copy()).to(x.device)
+        return grid[tuple(at_rows)]
 
     def shard(self, x: torch.Tensor, spec: Sequence[Axes]) -> torch.Tensor:
         """Per-shard blocks of the global ``x`` under the partition spec
@@ -499,7 +529,7 @@ class Fabric:
         out = xs.new_empty(nb + blk)
         at_t = torch.from_numpy(at).to(xs.device)
         out[tuple(self._index(a, xs.device)[at_t] for a in spec)] = \
-            xs[torch.from_numpy(rows).to(xs.device)]
+            _Take.apply(xs, torch.from_numpy(rows).to(xs.device))
         nd = len(blk)
         out = out.permute([v for i in range(nd) for v in (i, nd + i)])
         return out.reshape([n * b for n, b in zip(nb, blk)])
@@ -625,4 +655,4 @@ class Fabric:
         v = x.reshape(*x.shape[:1 + dim], n, size // n, *x.shape[2 + dim:])
         v = v.movedim(1 + dim, 1)
         rows = torch.arange(x.shape[0], device=x.device)
-        return v[rows, self._local_index(axes, x.device)]
+        return _Take.apply(v, rows, self._local_index(axes, x.device))

@@ -128,15 +128,87 @@ def bucket(x_tasks, dest, valid, aux_ints, n_buckets, cap, impl=None):
     return (xb[..., 0] if squeeze else xb), ints, task_slot, n_drop
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``rows[s, r] = table[s, ids[s, r]]``, a zero row where the id is -1
-    (``repro/core/routing.py:194``): ``table [S, M, D]``, ``ids [S, R]``
-    -> ``[S, R, D]``."""
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     s, m, d = table.shape
     flat = (ids.long().clamp(min=0)
             + torch.arange(s, device=ids.device)[:, None] * m).reshape(-1)
     rows = table.reshape(s * m, d).index_select(0, flat).view(*ids.shape, d)
     return rows.mul_((ids >= 0)[..., None].to(rows.dtype))
+
+
+class _SumK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.shape = t.shape
+        out = t.new_zeros(t.shape[0], t.shape[1], t.shape[3])
+        for j in range(t.shape[2]):
+            out.add_(t[:, :, j])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(2).expand(ctx.shape)
+
+
+def sum_k(t: torch.Tensor) -> torch.Tensor:
+    """``t [S, M, K, D]`` summed over K in order, from zeros: ``((0 + t_0)
+    + t_1) + ...``, the order of the reference's ``segment_sum`` over
+    consecutive segment ids on the CPU. -> ``[S, M, D]``; its gradient
+    is a broadcast view, no copy of ``t``."""
+    return _SumK.apply(t)
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_rows` with ``inverse``: the gradient of table row
+    ``m`` is the sum, in order from zeros, of the gradients of the rows
+    ``inverse[:, m*k : (m+1)*k]`` name (-1: none), gathered back. No
+    accumulate-by-index op, so the sum is the same on every run."""
+
+    @staticmethod
+    def forward(ctx, table, ids, inverse, k):
+        ctx.save_for_backward(inverse)
+        ctx.k = k
+        return _gather(table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        s, n = inverse.shape
+        by_k = inverse.view(s, n // ctx.k, ctx.k)
+        out = g.new_zeros(s, n // ctx.k, g.shape[2])
+        for j in range(ctx.k):                  # one [S, M, D] at a time
+            out.add_(_gather(g, by_k[:, :, j]))
+        return out, None, None, None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                inverse: Optional[torch.Tensor] = None, k: int = 1
+                ) -> torch.Tensor:
+    """``rows[s, r] = table[s, ids[s, r]]``, a zero row where the id is -1
+    (``repro/core/routing.py:194``): ``table [S, M, D]``, ``ids [S, R]``
+    -> ``[S, R, D]``.
+
+    ``inverse [S, M * k]``, when given, lists for each table row the
+    ``k`` rows of ``ids`` that read it (-1: none; :func:`inverse_map`
+    builds it where a row is read at most once): the gradient into
+    ``table`` is then gathered back through it and summed over the
+    ``k`` in order, where ``index_select``'s own gradient adds by index
+    (atomics on the card, in an order that changes from run to run)."""
+    if inverse is None:
+        return _gather(table, ids)
+    return _GatherRows.apply(table, ids, inverse, k)
+
+
+def inverse_map(ids: torch.Tensor, m: int) -> torch.Tensor:
+    """``[S, m]`` int32: for each of ``m`` table rows the position in
+    ``ids [S, R]`` that reads it, -1 where none; ``ids`` (-1: none)
+    reads each row at most once."""
+    s, r = ids.shape
+    seg = torch.where(ids >= 0, ids.long(), m)
+    inv = torch.full((s, m + 1), -1, dtype=torch.int32, device=ids.device)
+    inv.scatter_(1, seg, torch.arange(r, dtype=torch.int32, device=ids.device
+                                      ).expand(s, r))
+    return inv[:, :m]
 
 
 def slot_scatter(data: torch.Tensor, slot: torch.Tensor, valid: torch.Tensor,

@@ -26,7 +26,13 @@ already has into that loop:
   dataset at hand (signature matching + interpolation, mini-sweep
   fallback);
 * :mod:`repro_torch.dse.compare`   — ``python -m repro_torch.dse.compare`` trajectory
-  regression gate between successive ``BENCH_dse.json`` artifacts.
+  regression gate between successive ``BENCH_dse.json`` artifacts;
+* :mod:`repro_torch.dse.route_compare` — ``python -m
+  repro_torch.dse.route_compare``: the same gate for ``BENCH_route.json``
+  (within-run speedups over the onehot route and of pipelined rounds);
+* :mod:`repro_torch.dse.serve_compare` — ``python -m
+  repro_torch.dse.serve_compare``: the same gate for ``BENCH_serve.json``
+  (the overlapped drain's speedup over the synchronous one).
 """
 from .autoconfig import (BASELINE, DatasetSignature,            # noqa: F401
                          DispatchLoadSignature, LaunchConfig,

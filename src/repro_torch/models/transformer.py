@@ -158,7 +158,12 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig, dtype=torch.float32):
-    return params["embed"][tokens.long()].to(dtype)
+    """The rows of ``embed`` for ``tokens``. Through ``embedding``, whose
+    gradient adds a token's rows in one order on every run; advanced
+    indexing's gradient is an accumulating put, whose adds race (on the
+    CPU's threads too)."""
+    return torch.nn.functional.embedding(tokens.long(),
+                                         params["embed"]).to(dtype)
 
 
 def lm_logits(params, x, cfg: ArchConfig):

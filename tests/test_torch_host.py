@@ -55,7 +55,8 @@ for name in ('serve', 'serve.batching', 'serve.engine', 'serve.options',
              'costmodel.energy', 'costmodel.params', 'costmodel.perf',
              'costmodel.silicon', 'sparse.apps', 'dse', 'dse.autoconfig',
              'dse.compare', 'dse.driver', 'dse.evaluate', 'dse.pareto',
-             'dse.shardcheck', 'dse.space', 'dse.sweep', 'launch.mesh',
+             'dse.shardcheck', 'dse.space', 'dse.sweep', 'dse.route_compare',
+             'dse.serve_compare', 'launch.mesh',
              'launch.sharding', 'launch.analytic', 'launch.roofline',
              'launch.report', 'launch.dryrun', 'launch.hillclimb'):
     assert 'repro_torch.' + name in sys.modules, name

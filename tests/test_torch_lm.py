@@ -407,6 +407,67 @@ def test_cuda_olmoe_train_step_through_moe_dcra_matches_the_cpu(
             1 + float(p_cpu[k].abs().max())), k
 
 
+def _bits(t):
+    """``t``'s bytes as integers (bit equality, -0.0 and NaN included)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return t.detach().contiguous().view(ints[t.element_size()])
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dcra_bf16_repeats_bit_for_bit_at_olmoe_width(cuda_device):
+    """OLMoE-1B-7B's MoE layer at its width (d_model 2048, 64 experts
+    top-8, d_expert 1024; float32 weights, bf16 tokens [2, 512, 2048]) on
+    the fused packaging (data 2, expert 8, tp 1) at the config's factor:
+    two forwards and backwards give the same output, aux loss and
+    gradients (four weights and x) bit for bit: the combine and the
+    dispatch gather's gradient add in a fixed order."""
+    from repro_torch.core.dispatch import moe_dcra
+    from repro_torch.models.moe import init_moe
+    cfg = get_config("olmoe-1b-7b")
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    params = init_moe(gen, cfg)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=cuda_device
+                      ).to(torch.bfloat16)
+    info = MeshInfo(Fabric.virtual((2, 8, 1), ("data", "expert", "tp"),
+                                   device=cuda_device))
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        leaves["x"] = x.detach().clone().requires_grad_(True)
+        troute.reset_launches()
+        out, aux = moe_dcra({k: leaves[k] for k in params}, leaves["x"],
+                            cfg, info)
+        assert troute.LAUNCHES["bucket_scatter"] == 2   # dispatch, expert
+        grads = torch.autograd.grad((out * cot).float().sum() + aux,
+                                    list(leaves.values()))
+        runs.append([out, aux, *grads])
+    for a, b in zip(*runs):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_cuda_olmoe_bf16_forward_repeats_bit_for_bit(cuda_device):
+    """Reduced OLMoE-1B-7B with a ``MeshInfo`` over (data 2, expert 2,
+    tp 1), bf16 activations: two forwards give the same logits bit for
+    bit, on the flash kernel and on the torch attention path."""
+    cfg = get_config("olmoe-1b-7b").reduced()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    m = build_model(cfg, mesh_info=MeshInfo(Fabric.virtual(
+        (2, 2, 1), ("data", "expert", "tp"), device=cuda_device)),
+        dtype=torch.bfloat16, device=cuda_device).init(gen)
+    batch = _batch(cfg, S=64)
+    with torch.no_grad():
+        for kernel in (True, False):
+            a, _ = m.forward(batch, kernel=kernel)
+            b, _ = m.forward(batch, kernel=kernel)
+            assert a.dtype == torch.bfloat16
+            assert torch.equal(_bits(a), _bits(b)), kernel
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

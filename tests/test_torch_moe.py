@@ -511,8 +511,8 @@ GRAD_KEYS = ("router", "wg", "wu", "wd", "x")
 @pytest.mark.parametrize("name", GRAD_CASES)
 def test_moe_dcra_gradients_match_einsum_and_reference(reference, name):
     """Autograd through ``moe_dcra`` (the shard copies, ``gather_rows``'
-    in-place mask, the wire's transposes, ``slot_scatter``,
-    ``index_add_``, the casts): the gradients of ``sum(out * cot)`` with
+    in-place mask, the wire's transposes, ``slot_scatter``, the
+    combine's in-order sum, the casts): the gradients of ``sum(out * cot)`` with
     respect to the router, ``wg``/``wu``/``wd`` and ``x``, and of the aux
     loss with respect to the router and ``x``, each within 1e-5 of its
     max|g| of the reference's ``jax.grad`` through ``shard_map``. Without
