@@ -11,6 +11,7 @@
     python3 chip_smoke.py --recurrent          # phase 18 alone (after the build)
     python3 chip_smoke.py --dryrun             # phase 19 alone (after the build)
     python3 chip_smoke.py --serve-out          # phase 20 alone (after the build)
+    python3 chip_smoke.py --figures            # phase 21 alone (after the build)
     python3 chip_smoke.py --repeat [SRC] [--deterministic]  # OLMoE run twice
 
 Phases, each reporting on its own lines; any failure raises and the
@@ -135,7 +136,11 @@ script exits non-zero with no result line:
    8 x 8 at the largest RMAT scale whose pod wire fits 16 GiB: the
    resolved ``LaunchConfig`` (source, point, score, caps),
    autoconfigure's host seconds, drops a round and TEPS, bit-identical
-   to the plain-torch path under the same ``LaunchConfig``;
+   to the plain-torch path under the same ``LaunchConfig``. The flat
+   half's ``autoconfigure(g, "bfs")`` runs in the ``--host-oracles``
+   process beside phases 2-13 (it walks RMAT-22 for 35 s), and the
+   launch's call gets that resolution once its graph's signature is
+   checked;
 15. scale-out: two worker processes (new processes of this script,
    ``--scale-out-worker``, started after the build, so no worker runs
    ``nvcc``) share the card (``cuda:0`` in both) as one
@@ -257,17 +262,20 @@ script exits non-zero with no result line:
    share the card as one ``Fabric.distributed`` ``("portal", "data")``
    (2, 32) over gloo, one pod a process. Here first, the one-process
    server of phase 13 on the same (2, 32) shape, from phase 13's resident
-   packing. In the workers: (a)
-   phase 13's server (RMAT-20, batch width 4, the first 16 of its 32
-   requests: all 32 took 125 s a pass, lockstep) across the two
-   processes, every response
+   packing. In the workers, which load RMAT-20 and phase 13's packing
+   onto 64 shards from files the parent writes: (a)
+   phase 13's server (RMAT-20, batch width 4, the first 8 of its 32
+   requests, a BFS and an SSSP launch: all 32 took 125 s a pass, 16 took
+   65 s, lockstep) across the two processes, every response
    bit-identical to phase 13's, rounds, messages and drops equal to the
    one-process server's, no build under load and no drop, the scatter
    ``staged`` and the reduce ``atomic`` in each, both workers'
    responses equal; requests/s beside phase 13's and the gloo seconds a
-   launch; (b) the same stream with a host loss at launch 2 keeping 32
-   shards (16 a process), from (a)'s warm classes and resident packing,
-   every request served equal to (a); (c) one
+   launch; (b) the stream's first 4 requests with a host loss at launch
+   0 keeping 32 shards (16 a process), from (a)'s warm classes and
+   resident packing: the server re-packs onto 32 shards, re-pre-warms
+   the BFS class and serves every request equal to (a) (16 requests with
+   the loss at launch 2 took 89 s); (c) one
    dispatch of OLMoE-1B-7B's MoE layer through a server's ``MoEService``
    lane on phase 10's two-stage packaging with one pod a process (the
    portal stage crosses), x [8, 2048, 2048] at factor 1.25, within 1e-5
@@ -278,9 +286,24 @@ script exits non-zero with no result line:
    r) + aux``: the loss and every leaf (four weights, x) within 1e-5 of
    its max|g| of the one-process run, both processes' weight gradients
    identical. A failing worker, or a peer that times out, fails the
-   phase.
+   phase;
+21. the paper's figure harness (``repro_torch.figures``) and the
+   graph-analytics example: (1) ``figures.run`` at ``--quick`` (scale
+   12, cut from the paper's 16: the full set takes minutes of host
+   numpy) on the card, every module run and every number of its CSV
+   finite, ``moe_dispatch``'s einsum timed on the card; the roofline
+   table on phase 19's records (68 cells, the collective term "—");
+   (2) ``noc_routing`` at the reference's defaults (RMAT-11, 8 shards, 2
+   pods) and at RMAT-18 on 64 shards in 8 pods, each mode a path: no
+   drop, BFS and the histogram bit-identical to the oracle, SpMV every
+   row within its float32 bound, ms a call, the hierarchical die
+   crossings below the flat ones; (3)
+   ``examples/graph_analytics_torch.py --distributed --scale 12`` on
+   the card: the seven apps and the auto-configured BFS with no drop,
+   each bit-identical to its oracle or within its float32 bound
+   (PageRank, SpMV), and the packaging table.
 
-Each path of phases 4-7, 9-20 runs with every kernel's launch count set
+Each path of phases 4-7, 9-21 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
@@ -1481,13 +1504,12 @@ def host_oracles_start(g):
     return proc, out_dir
 
 
-def host_oracle(oracles, name, wait=600):
-    """``name``'s array from the ``--host-oracles`` process and the seconds
-    it took there, once it is written; fails if the process failed or
-    took longer than ``wait`` seconds."""
-    import numpy as np
+def host_result(oracles, name, suffix, wait=600):
+    """The path of ``name`` + ``suffix`` from the ``--host-oracles``
+    process and the seconds it took there, once it is written; fails if
+    the process failed or took longer than ``wait`` seconds."""
     proc, out_dir = oracles
-    path = out_dir / f"{name}.npy"
+    path = out_dir / f"{name}{suffix}"
     deadline = time.perf_counter() + wait
     while not path.exists():
         if proc.poll() not in (None, 0) or time.perf_counter() > deadline:
@@ -1496,7 +1518,14 @@ def host_oracle(oracles, name, wait=600):
                 f"--host-oracles (rc {proc.poll()}) gave no {name}:\n"
                 + (out_dir / "log.txt").read_text()[-3000:])
         time.sleep(0.2)
-    seconds = json.loads((out_dir / f"{name}.json").read_text())
+    return path, json.loads((out_dir / f"{name}.json").read_text())
+
+
+def host_oracle(oracles, name):
+    """``name``'s array from the ``--host-oracles`` process and the seconds
+    it took there (:func:`host_result`)."""
+    import numpy as np
+    path, seconds = host_result(oracles, name, ".npy")
     return np.load(path), seconds
 
 
@@ -1505,10 +1534,13 @@ def host_oracles_worker(out_dir):
     wrote and writes, each as soon as it is done (renamed into place, its
     seconds beside it): ``ref.pagerank_ref``; for SpMV's ``x`` (drawn as
     :func:`run_spmv` draws it) ``ref.spmv_ref``, :func:`spmv_bounds` and
-    ``spmv_task_stream`` onto 64 shards; then ``_graph_setup(g, 1)``.
-    Numpy only: it never touches the card."""
+    ``spmv_task_stream`` onto 64 shards; then ``_graph_setup(g, 1)``;
+    last, phase 14's ``autoconfigure(g, "bfs")``, pickled. Numpy only: it
+    never touches the card."""
+    import pickle
     import numpy as np
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dse.autoconfig import autoconfigure
     from repro_torch.sparse import ref
     from repro_torch.sparse.csr import CSR
     from repro_torch.sparse.program import _graph_setup
@@ -1541,7 +1573,23 @@ def host_oracles_worker(out_dir):
     for k, a in (("src_slot", src_slot), ("dst", dst), ("w", w)):
         put(f"setup1_{k}", a, t0)
     put("setup1", np.array([n_local, e_max]), t0)
+    del src_slot, dst, w
+    t0 = time.perf_counter()
+    lc = autoconfigure(g, "bfs")
+    (out_dir / "auto_bfs.part").write_bytes(pickle.dumps(lc))
+    (out_dir / "auto_bfs.json").write_text(
+        json.dumps(time.perf_counter() - t0))
+    os.replace(out_dir / "auto_bfs.part", out_dir / "auto_bfs.pkl")
     return 0
+
+
+def host_autoconfig(oracles):
+    """Phase 14's flat ``autoconfigure(g, "bfs")`` on RMAT-22 from the
+    ``--host-oracles`` process (it ran beside phases 2-13) and the host
+    seconds it took there (:func:`host_result`)."""
+    import pickle
+    path, seconds = host_result(oracles, "auto_bfs", ".pkl")
+    return pickle.loads(path.read_bytes()), seconds
 
 
 def host_setup1(oracles):
@@ -3213,7 +3261,13 @@ def twin_at_scale(best, device, totals):
 class Recorded:
     """Wraps ``repro_torch.dse.autoconfig.autoconfigure`` while in use:
     every ``LaunchConfig`` an ``config="auto"`` launch resolves, with its
-    host seconds, lands in ``self.calls``."""
+    host seconds, lands in ``self.calls``. With ``given`` (a
+    ``LaunchConfig`` and its seconds, resolved by the same function on the
+    same graph in the ``--host-oracles`` process) the launch's call
+    returns it, once its graph's signature and its app are checked."""
+
+    def __init__(self, given=None):
+        self.given = given
 
     def __enter__(self):
         from repro_torch.dse import autoconfig
@@ -3222,7 +3276,17 @@ class Recorded:
 
         def recording(*args, **kwargs):
             t0 = time.perf_counter()
-            lc = self.real(*args, **kwargs)
+            if self.given is None:
+                lc = self.real(*args, **kwargs)
+            else:
+                lc, seconds = self.given
+                g, app = args[:2]
+                if (app != "bfs" or kwargs.get("objective", "teps") != "teps"
+                        or autoconfig.signature_of(g) != lc.signature):
+                    raise AssertionError(f"autoconfigure({app}, {kwargs}) "
+                                         f"on another graph than the one "
+                                         f"resolved beside phases 2-13")
+                t0 -= seconds
             self.calls.append((lc, time.perf_counter() - t0))
             return lc
         autoconfig.autoconfigure = recording
@@ -3278,24 +3342,26 @@ def pod_graph(g, e_max22):
     raise AssertionError(f"no RMAT scale's pod wire fits: {seen}")
 
 
-def auto_bfs(tag, g, root, fabric, setup, totals):
+def auto_bfs(tag, g, root, fabric, setup, totals, given=None):
     """One ``dcra_bfs(..., options=LaunchOptions(config="auto"))`` on
     ``fabric`` and the same launch with ``route_impl="sort"`` under the
     ``LaunchConfig`` it resolved: bit-identical states and ``AppStats``.
-    Drops are the resolved point's capacity semantics, so no oracle."""
+    Drops are the resolved point's capacity semantics, so no oracle.
+    ``given``: the resolution made beside phases 2-13 (:class:`Recorded`);
+    its seconds count as the autoconfiguration's, not the launch's."""
     import numpy as np
     import torch
     from repro_torch.core.routing import resolve_caps
     from repro_torch.sparse.options import LaunchOptions
     from repro_torch.sparse.torch_apps import dcra_bfs
-    with Recorded() as rec:
+    with Recorded(given) as rec:
         with MainPath(f"BFS auto {tag}", ROUTE_KERNELS, totals,
                       STAGED_ONLY) as path:
             t0 = time.perf_counter()
             dist, stats = dcra_bfs(g, root, fabric, setup=setup,
                                    options=LaunchOptions(config="auto"))
             torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
+            run_s = time.perf_counter() - t0 + (given[1] if given else 0)
     if len(rec.calls) != 1:
         raise AssertionError(f"BFS auto {tag}: {len(rec.calls)} "
                              f"auto-configurations, expected 1")
@@ -3317,8 +3383,10 @@ def auto_bfs(tag, g, root, fabric, setup, totals):
                               clamp=True)
     reached = int(g.degrees()[dist >= 0].sum())
     launch_s = run_s - auto_s
+    where = ("in the --host-oracles process beside phases 2-13, handed to "
+             "the launch here" if given else "on the host")
     log(f"bfs auto {tag} (rmat n={g.n} nnz={g.nnz}, root {root}): "
-        f"autoconfigure {auto_s:.2f} s on the host (its evaluator's BFS "
+        f"autoconfigure {auto_s:.2f} s {where} (its evaluator's BFS "
         f"root, vertex 0, has out-degree {int(g.degrees()[0])}) -> "
         f"{lc.source} "
         f"{lc.point.point_id} score {lc.score:.6f} (signature "
@@ -3333,19 +3401,21 @@ def auto_bfs(tag, g, root, fabric, setup, totals):
     return lc, auto_s
 
 
-def run_dse(g, setup, root, device, totals):
+def run_dse(g, setup, root, device, totals, given=None):
     """Phase 14: (a) the quick DSE sweep with its revalidation on the
     card, held to the committed ``BENCH_dse.json``; (b) ``shardcheck`` of
     its highest-TEPS frontier point on RMAT-``TWIN_SCALE`` over
     ``TWIN_SHARDS`` shards, every app against the twin; (c) the
-    auto-configured BFS on RMAT-22, flat 64, from phase 4's root, and on
-    pod 8 x 8 at the largest scale whose wire fits ``POD_WIRE_BYTES``."""
+    auto-configured BFS on RMAT-22, flat 64, from phase 4's root (its
+    autoconfiguration ``given`` when the ``--host-oracles`` process made
+    it beside phases 2-13: :func:`host_autoconfig`), and on pod 8 x 8 at
+    the largest scale whose wire fits ``POD_WIRE_BYTES``."""
     import numpy as np
     from repro_torch.core.fabric import Fabric
     best = dse_sweep(device, totals)
     twin_at_scale(best, device, totals)
     auto_bfs("flat 64", g, root, Fabric.fake(64, device=device), setup,
-             totals)
+             totals, given)
     s, gs, e_max, wire, caps, seen = pod_graph(g, setup[-1])
     log(f"pod half: RMAT-{s} (n={gs.n} nnz={gs.nnz} E_max {e_max}) is the "
         f"largest scale whose wire at factor 64 fits {POD_WIRE_BYTES} B: "
@@ -5061,6 +5131,7 @@ def dry_table(device):
     (out / "dryrun_table.md").write_text(
         report.summary(results) + "\n\n" + report.roofline_table(results)
         + "\n")
+    DRY_RESULTS.write_text(json.dumps(results))     # phase 21's roofline
     biggest = max(base, key=lambda r: r["argument_size_in_bytes"])
     log(f"dry run (meta device, H100 bf16 989e12 FLOP/s, HBM 3.35e12 B/s): "
         f"{report.summary(results)}; by arch {by_arch}; {seconds:.2f} s; "
@@ -5268,10 +5339,14 @@ def run_dry(device, totals):
 
 SERVE_OUT_SHAPE = (2, 32)           # ("portal", "data"): one pod a process
 SERVE_OUT_NAMES = ("portal", "data")
-SERVE_OUT_REQUESTS = 16             # phase 13's stream, its first half:
+SERVE_OUT_REQUESTS = 8              # (a): phase 13's stream, its first
+                                    # quarter (a BFS and an SSSP launch):
                                     # 32 took 125 s a pass across the two
-                                    # processes (gloo), over 150 s
-SERVE_OUT_LOSS = (2, 32)            # (b): the launch of the loss, shards kept
+                                    # processes (gloo), 16 took 65 s
+SERVE_OUT_LOSS = (0, 32, 4)         # (b): the launch of the loss, shards
+                                    # kept, requests (one BFS launch: 16
+                                    # requests with the loss at launch 2
+                                    # took 89 s, re-packing included)
 SERVE_OUT_PG_TIMEOUT = 300          # seconds: the gloo group's collectives
 SERVE_OUT_WAIT = 900                # seconds the parent waits for a worker
 MOE_OUT_PACKAGING = 2               # phase 10's two-stage (pod 2, ...)
@@ -5285,6 +5360,42 @@ def serve_out_graph():
     from repro_torch.sparse import datasets
     g = datasets.rmat(SERVE_SCALE, seed=SEED)
     return g, serve_requests(g.n)[:SERVE_OUT_REQUESTS]
+
+
+def save_serve_graph(out_dir, g, resident):
+    """Phase 13's graph and its resident packing onto 64 shards, written
+    for the workers (host arrays; ``src_slot`` as int32)."""
+    import numpy as np
+    for k in ("row_ptr", "col_idx", "values"):
+        np.save(out_dir / f"g_{k}.npy", getattr(g, k))
+    for (gname, undirected), (n_local, src, dst, w, e_max) in \
+            resident.items():
+        tag = f"{gname}_{int(undirected)}"
+        np.save(out_dir / f"pack_{tag}_src.npy", src.int().cpu().numpy())
+        np.save(out_dir / f"pack_{tag}_dst.npy", dst.cpu().numpy())
+        np.save(out_dir / f"pack_{tag}_w.npy", w.cpu().numpy())
+        (out_dir / f"pack_{tag}.json").write_text(json.dumps(
+            [gname, bool(undirected), int(n_local), int(e_max)]))
+
+
+def load_serve_graph(out_dir, fab):
+    """A worker's copy of :func:`save_serve_graph`'s files: the graph and
+    the resident packing keyed as ``ProgramServer._resident``, this
+    process's rows on its device."""
+    import numpy as np
+    from repro_torch.sparse.csr import CSR
+    from repro_torch.sparse.program import resident_setup
+    g = CSR(*(np.load(out_dir / f"g_{k}.npy")
+              for k in ("row_ptr", "col_idx", "values")))
+    resident = {}
+    for meta in sorted(out_dir.glob("pack_*.json")):
+        gname, undirected, n_local, e_max = json.loads(meta.read_text())
+        tag = meta.name[len("pack_"):-len(".json")]
+        arrays = [np.load(out_dir / f"pack_{tag}_{k}.npy")
+                  for k in ("src", "dst", "w")]
+        resident[(gname, undirected)] = resident_setup(
+            (n_local, *arrays, e_max), fab.device, fabric=fab)
+    return g, resident
 
 
 def response_record(resps):
@@ -5465,9 +5576,10 @@ def serve_out_moe(pid, device):
 def serve_out_worker(coord, pid, out_dir):
     """``--serve-out-worker COORD PID DIR``: one process of phase 20. Joins
     the gloo group at ``COORD`` as process ``PID`` with a
-    ``("portal", "data")`` (2, 32) fabric on the card, builds phase 13's
-    graph and stream from the seed, serves it (a) in lockstep and (b)
-    with a host loss, then runs (c) and (d) (:func:`serve_out_moe`), and
+    ``("portal", "data")`` (2, 32) fabric on the card, loads phase 13's
+    graph and packing (:func:`load_serve_graph`), serves its stream (a)
+    in lockstep and (b) with a host loss (which re-packs onto 32 shards
+    here), then runs (c) and (d) (:func:`serve_out_moe`), and
     writes the results (``p<PID>_serve<i>.npy``) and a record
     (``p<PID>.json``) into ``DIR``. It loads the kernels the parent built
     and fails if it had to build one."""
@@ -5491,22 +5603,23 @@ def serve_out_worker(coord, pid, out_dir):
                              timeout=SERVE_OUT_PG_TIMEOUT)
     join_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    g, reqs = serve_out_graph()
+    g, resident = load_serve_graph(out_dir, fab)
+    reqs = serve_requests(g.n)
     rec = {"join_s": join_s, "setup_s": time.perf_counter() - t0,
            "passes": []}
     name = f"rmat{SERVE_SCALE}"
-    at, keep = SERVE_OUT_LOSS
-    resident = {}
-    for i, (tag, so, plan) in enumerate((
-            ("lockstep", ServeOptions(), None),
+    at, keep, n_loss = SERVE_OUT_LOSS
+    for i, (tag, so, plan, n) in enumerate((
+            ("lockstep", ServeOptions(), None, SERVE_OUT_REQUESTS),
             ("host loss", ServeOptions(max_retries=1),
-             ServeFailurePlan(at={at: "host_loss"}, keep_devices=keep)))):
+             ServeFailurePlan(at={at: "host_loss"}, keep_devices=keep),
+             n_loss))):
         srv = ProgramServer(fab, {name: g}, batch_width=SERVE_WIDTH,
                             serve_options=so, failure_plan=plan)
-        # (b) starts from (a)'s warm classes and resident packing
+        # (a) from phase 13's packing, (b) from (a)'s warm classes too
         srv._resident.update(resident)
-        rec["passes"].append(serve_out_pass(tag, srv, reqs, pid, out_dir, i,
-                                            warm=not resident))
+        rec["passes"].append(serve_out_pass(tag, srv, reqs[:n], pid,
+                                            out_dir, i, warm=i == 0))
         resident = srv._resident
         del srv
     del resident
@@ -5567,20 +5680,27 @@ def run_serve_out(device, totals, base=None):
         raise AssertionError("serve-out: the one-process (2, 32) server's "
                              "responses differ from phase 13's")
     want = response_record(resps)
-    del one, resps, g, resident, base
-    torch.cuda.empty_cache()
+    del one, resps
     out_dir = ROOT / "build" / "serve_out"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    save_serve_graph(out_dir, g, resident)
+    log(f"serve-out: RMAT-{SERVE_SCALE} and phase 13's packing onto 64 "
+        f"shards written for the workers in {time.perf_counter() - t0:.2f} s "
+        f"[{SMI}]")
+    del g, resident, base
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     workers = run_workers(out_dir, "--serve-out-worker", SERVE_OUT_WAIT)
     log(f"serve-out: 2 workers on {device} (gloo over 127.0.0.1, a "
         f"(2, 32) fabric, one pod a process) {time.perf_counter() - t0:.2f} "
         f"s in all; join s {[round(w['join_s'], 2) for w in workers]}, "
-        f"RMAT-{SERVE_SCALE} from the seed s "
+        f"RMAT-{SERVE_SCALE} and its packing loaded s "
         f"{[round(w['setup_s'], 2) for w in workers]} [{SMI}]")
     for i in range(2):
         recs = [w["passes"][i] for w in workers]
+        n = SERVE_OUT_REQUESTS if i == 0 else SERVE_OUT_LOSS[2]
         got = [np.load(out_dir / f"p{pid}_serve{i}.npy") for pid in (0, 1)]
         if not np.array_equal(got[0], got[1]) or recs[0]["responses"] != \
                 recs[1]["responses"]:
@@ -5603,9 +5723,9 @@ def run_serve_out(device, totals, base=None):
                         f"serve-out lockstep p{pid}: rounds, messages or "
                         f"drops differ from the one-process server's, or "
                         f"{drops} drops, cache {rec['cache']}")
-            elif rec["host_losses"] != 1 or rec["shape"] != [
-                    SERVE_OUT_LOSS[1] // SERVE_OUT_SHAPE[1],
-                    SERVE_OUT_SHAPE[1]]:
+            elif rec["host_losses"] != 1 or rec["batches"] != 1 or \
+                    rec["shape"] != [SERVE_OUT_LOSS[1] // SERVE_OUT_SHAPE[1],
+                                     SERVE_OUT_SHAPE[1]]:
                 raise AssertionError(f"serve-out host loss p{pid}: "
                                      f"{rec['host_losses']} losses, fabric "
                                      f"{rec['shape']}")
@@ -5692,6 +5812,232 @@ def run_serve_out(device, totals, base=None):
         + ", ".join(f"{k} {v[0] / v[1]:.3e}" for k, v in gr["err"].items())
         + f" (bound 1e-5) [{SMI}]")
     shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the paper's figure harness and the graph-analytics example
+# ---------------------------------------------------------------------------
+
+FIG_SCALE = 12                      # figures.run --quick: the paper's scale
+                                    # 16 takes minutes of host numpy (fig4
+                                    # 71.5 s, fig7 60.8 s on a CPU)
+NOC_RUNS = ((11, 8, 2),             # (RMAT scale, shards, pods): the
+            (18, 64, 8))            # reference's defaults; then the size at
+                                    # which SpMV and the histogram route in
+                                    # two stages over 64 shards
+GA_SCALE = 12                       # examples/graph_analytics_torch.py
+DRY_RESULTS = ROOT / "build" / "dryrun_results_torch.json"  # phase 19's
+
+
+def csv_blocks(text):
+    """``{module: rows}`` of ``figures.run``'s output, split at its ``==
+    name ==`` lines, each row a list of fields."""
+    blocks, name = {}, None
+    for line in text.splitlines():
+        m = re.fullmatch(r"== (\w+) ==", line)
+        if m:
+            name = m.group(1)
+            blocks[name] = []
+        elif name and "," in line and not line.startswith("#"):
+            blocks[name].append(line.split(","))
+    return blocks
+
+
+def csv_numbers(row):
+    """The numeric fields of a CSV row (``3.441e+09``, ``pu=0.10``,
+    ``6.94ms``, ``drops=0``)."""
+    out = []
+    for field in row:
+        v = field.split("=", 1)[-1]
+        try:
+            out.append(float(v[:-2] if v.endswith("ms") else v))
+        except ValueError:
+            pass
+    return out
+
+
+def figures_quick(device, totals):
+    """(1) ``figures.run`` at ``--quick`` on the card: every module ran, a
+    row a module at least (the roofline's pointer where no dry run is
+    written), every number finite; the route kernels it launched (its
+    ``noc_routing``) counted."""
+    import contextlib
+    import io
+    from repro_torch.figures import run
+    out = io.StringIO()
+    with MainPath("figures.run --quick", ROUTE_KERNELS, totals,
+                  STAGED_PRIVATE) as path:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, failures, seconds = run.run_all(FIG_SCALE, device)
+        wall = time.perf_counter() - t0
+    blocks = csv_blocks(out.getvalue())
+    names = [n for n, _ in run.figures(FIG_SCALE, device)]
+    bad = [(n, r) for n in blocks for r in blocks[n]
+           if not all(map(math.isfinite, csv_numbers(r)))]
+    if failures or list(blocks) != names or bad or any(
+            len(blocks[n]) < (1 if n == "roofline_table" else 2)
+            for n in names):
+        raise AssertionError(f"figures.run: failed {failures}, modules "
+                             f"{list(blocks)}, rows not finite {bad[:3]}")
+    for row in blocks["moe_dispatch"]:
+        log(f"figures moe_dispatch | {','.join(row)}")
+    log(f"figures.run --quick (scale {FIG_SCALE}, cut from the paper's 16: "
+        f"the full set takes minutes of host numpy) on {device}: all "
+        f"{len(names)} modules ran, {sum(map(len, blocks.values()))} CSV "
+        f"lines, every number finite; {wall:.2f} s, by module "
+        + ", ".join(f"{n} {seconds[n]:.2f}" for n in names)
+        + f" s; launches {path.launches}, route designs {path.paths} [{SMI}]")
+
+
+def noc_run(scale, n_dev, n_pods, device, totals):
+    """(2) ``noc_routing`` at RMAT-``scale`` over ``n_dev`` shards, flat
+    and in ``n_pods`` pods, each mode a path of its own: no drop, BFS and
+    the histogram bit-identical to the oracle, SpMV every row within its
+    float32 bound (:func:`spmv_bounds`); the hierarchical die crossings
+    below the flat ones."""
+    import numpy as np
+    from repro_torch.figures import noc_routing
+    t0 = time.perf_counter()
+    g, x, els = noc_routing.workload(scale)
+    want = noc_routing.oracles(g, x, els)
+    tol, _ = spmv_bounds(g, x)
+    setup_s = time.perf_counter() - t0
+    for mode, fab in noc_routing.fabrics(n_dev, n_pods, device).items():
+        tag = f"noc_routing rmat-{scale} x {n_dev} {mode}"
+        with MainPath(tag, ROUTE_KERNELS, totals, STAGED_PRIVATE) as path:
+            cases = noc_routing.run_mode(g, x, els, fab, mode, want)
+        parts = []
+        for c in cases:
+            if c.drops:
+                raise AssertionError(f"{tag} {c.app}: {c.drops} drops")
+            if c.app == "spmv":
+                worst = held_to(f"{tag} spmv", c.y, c.oracle, tol)
+                held = f"every row within its float32 bound (worst {worst:.3e})"
+            elif np.array_equal(c.y.astype(np.float64), c.oracle):
+                held = "bit-identical to the oracle"
+            else:
+                raise AssertionError(f"{tag} {c.app}: max |err| {c.err}")
+            parts.append(f"{c.app} {c.ms:.4f} ms a call, {held}")
+        log(f"{tag} (nnz {g.nnz}, {fab.shape} {fab.axis_names}): "
+            + "; ".join(parts) + f"; no drop; launches {path.launches}, "
+            f"route designs {path.paths} [{SMI}]")
+    t0 = time.perf_counter()
+    cross = noc_routing.crossings(g, n_dev, n_pods)
+    if not cross["hier"] < cross["flat"]:
+        raise AssertionError(f"noc_routing rmat-{scale}: die crossings "
+                             f"{cross}, hierarchical not below flat")
+    log(f"noc_routing rmat-{scale} x {n_dev}: die crossings flat "
+        f"{cross['flat']}, {n_pods} pods {cross['hier']} "
+        f"({cross['hier'] / cross['flat']:.4f} of flat; analytic, "
+        f"{time.perf_counter() - t0:.2f} s on the host); inputs and oracles "
+        f"{setup_s:.2f} s (numpy)")
+
+
+def roofline_rows():
+    """The dry run's roofline table (``figures.roofline_table``) on the
+    records phase 19 wrote: a row a laid-out cell, every number finite,
+    the collective term "—"."""
+    import contextlib
+    import io
+    from repro_torch.figures import roofline_table
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows = roofline_table.main(str(DRY_RESULTS))
+    lines = [ln.split(",") for ln in out.getvalue().splitlines()[1:]]
+    cells = [r for r in lines if r[3] not in ("SKIP", "ERROR")]
+    if (len(rows) != len(cells) or len(cells) != 68
+            or any(r[5] != "—" or not all(map(math.isfinite,
+                                              csv_numbers(r))) for r in cells)):
+        raise AssertionError(f"roofline table: {len(cells)} rows of "
+                             f"{len(lines)}, {cells[:2]}")
+    log(f"figures roofline_table on phase 19's records: {len(cells)} cells "
+        f"and {len(lines) - len(cells)} skips; compute and memory terms "
+        f"finite, the collective term — (no XLA HLO in torch)")
+
+
+def graph_analytics(device, totals):
+    """(4) ``examples/graph_analytics_torch.py --distributed --scale
+    GA_SCALE`` on the card: every app and the auto-configured BFS with no
+    drop, BFS, SSSP, WCC, k-core and the histogram bit-identical to their
+    oracles, PageRank within :func:`pagerank_bound` of its oracle, SpMV
+    every row within :func:`spmv_bounds`."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "graph_analytics_torch", ROOT / "examples" / "graph_analytics_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv = ["--scale", str(GA_SCALE), "--distributed", "--device",
+            str(device)]
+    out = io.StringIO()
+    with MainPath("graph_analytics --distributed", ROUTE_KERNELS, totals,
+                  STAGED_PRIVATE) as path:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            g, (runs, x, _) = example.main(argv)
+        wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log(f"graph_analytics | {line}")
+    tol, _ = spmv_bounds(g, x)
+    pr_tol = pagerank_bound(g, device, n_dev=example.N_SHARDS)
+    held = []
+    for name, got, want, stats in runs:
+        if stats.total_drops:
+            raise AssertionError(f"graph_analytics {name}: "
+                                 f"{stats.total_drops} drops")
+        if name == "spmv":
+            held.append(f"spmv {held_to('graph_analytics spmv', got, want, tol):.3e}")
+        elif name == "pagerank":
+            held.append(f"pagerank {held_to('graph_analytics pagerank', got, want, pr_tol):.3e}")
+        elif not (got.shape == want.shape and (got == want).all()):
+            raise AssertionError(f"graph_analytics {name}: differs from "
+                                 f"its oracle")
+    if [r[0] for r in runs] != ["spmv", "histogram", "bfs", "sssp",
+                                "pagerank", "wcc", "kcore", "bfs[auto]"]:
+        raise AssertionError(f"graph_analytics: runs {[r[0] for r in runs]}")
+    log(f"graph_analytics_torch {' '.join(argv)}: {wall:.2f} s; every app "
+        f"no drop, bfs, sssp, wcc, kcore, histogram, bfs[auto] "
+        f"bit-identical to their oracles, worst |err| / bound: "
+        + ", ".join(held) + f"; launches {path.launches}, route designs "
+        f"{path.paths} [{SMI}]")
+
+
+def run_figures(device, totals):
+    """Phase 21: (1) :func:`figures_quick` and the roofline table on phase
+    19's records; (2) :func:`noc_run` at each of :data:`NOC_RUNS`; (3)
+    ``moe_dispatch``'s rows (its einsum timed on the card, in (1)); (4)
+    :func:`graph_analytics`."""
+    figures_quick(device, totals)
+    roofline_rows()
+    for scale, n_dev, n_pods in NOC_RUNS:
+        noc_run(scale, n_dev, n_pods, device, totals)
+    graph_analytics(device, totals)
+
+
+def figures_only():
+    """``--figures``: the build, phase 19's dry-run table (for the
+    roofline's records) and phase 21 alone; its launch counts are
+    printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    device = torch.device(*CARD)
+    dry_table(device)
+    t0 = phase("19 (a) (the dry run's table on meta)", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_figures(device, totals)
+    phase("21 (figures, noc_routing, graph analytics)", t0)
+    log(f"launches {totals}")
+    return 0
 
 
 def serve_out_only():
@@ -6052,6 +6398,8 @@ def main() -> int:
                            "--deterministic" in sys.argv)
     if sys.argv[1:2] == ["--serve-out"]:
         return serve_out_only()
+    if sys.argv[1:2] == ["--figures"]:
+        return figures_only()
     if sys.argv[1:2] == ["--serve-out-worker"]:
         return serve_out_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--scale-out-worker"]:
@@ -6167,9 +6515,6 @@ def main() -> int:
                                                    "bound_ms")})
     rank.update(run_pipelined(g, root, want, setup, device, totals,
                               pagerank, host_setup1(oracles)))
-    oracles[0].wait()
-    shutil.rmtree(oracles[1], ignore_errors=True)
-    del oracles
     del want, pagerank
     torch.cuda.empty_cache()
     t0 = phase("12 (pipelined rounds rmat-22)", t0)
@@ -6178,7 +6523,10 @@ def main() -> int:
 
     # ---- 14: the DSE sweep, the twin at scale, config="auto" ---------------
     torch.cuda.empty_cache()
-    run_dse(g, setup, root, device, totals)
+    run_dse(g, setup, root, device, totals, host_autoconfig(oracles))
+    oracles[0].wait()
+    shutil.rmtree(oracles[1], ignore_errors=True)
+    del oracles
     t0 = phase("14 (DSE, twin rmat-18, config=auto rmat-22)", t0)
 
     # ---- 15: scale-out, two processes sharing the card ---------------------
@@ -6212,6 +6560,11 @@ def main() -> int:
     run_serve_out(device, totals, serve13)
     del serve13
     t0 = phase("20 (the server and the MoE layer across two processes)", t0)
+
+    # ---- 21: the paper's figure harness, noc_routing, graph analytics ------
+    torch.cuda.empty_cache()
+    run_figures(device, totals)
+    t0 = phase("21 (figures, noc_routing, graph analytics)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

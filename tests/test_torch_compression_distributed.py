@@ -163,7 +163,10 @@ def _result(stdout):
 @pytest.fixture(scope="module")
 def runs():
     """``(worker 0's, worker 1's, the reference's)`` results; every
-    process waited for at most 300 s and none left running."""
+    process waited for at most 300 s and none left running. The
+    reference starts once both workers have exited, so that its 8 XLA
+    host devices do not compete with the workers for the CPU (under load
+    they pushed its collectives past XLA's rendezvous timeout)."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -172,14 +175,16 @@ def runs():
                                here], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for pid in (0, 1)]
-    procs.append(subprocess.Popen([sys.executable, "-c", _reference_script()],
-                                  env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True))
     outs = []
     try:
-        for p in procs:
+        for p in list(procs):
             so, se = p.communicate(timeout=300)
             outs.append((p.returncode, so, se))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _reference_script()], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        so, se = procs[-1].communicate(timeout=300)
+        outs.append((procs[-1].returncode, so, se))
     finally:
         for p in procs:
             p.kill()

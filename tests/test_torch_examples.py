@@ -21,6 +21,7 @@ EXAMPLES = {
     "serve_lm_torch": ["--batch", "2", "--prompt-len", "6", "--gen", "4"],
     "quickstart_torch": [],
     "serve_graph_torch": ["--requests", "8"],
+    "graph_analytics_torch": ["--scale", "8", "--distributed"],
 }
 
 
@@ -49,6 +50,9 @@ def test_example_runs_on_the_cpu(name):
     if name == "quickstart_torch":
         assert "histogram kernel ok: True (0 kernel launch on cpu)" \
             in out.stdout
+    if name == "graph_analytics_torch":
+        assert "distributed path (8 shards on cpu" in out.stdout
+        assert "bfs[auto]" in out.stdout
 
 
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
@@ -63,3 +67,23 @@ def test_example_imports_neither_jax_nor_the_reference(name):
     tops = {m.split(".")[0] for m in mods}
     assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}, tops
     assert "repro_torch" in tops
+
+
+def test_graph_analytics_table_equals_the_reference():
+    """The packaging table (DCRA-HBM 32x32 against DCRA-SRAM 64x64, all
+    seven apps) and the dataset line, text for text, at RMAT-8; the
+    reference without ``--distributed`` needs no fake devices."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu")
+    want = subprocess.run([sys.executable, os.path.join(
+        ROOT, "examples", "graph_analytics.py"), "--scale", "8"], env=env,
+        capture_output=True, text=True, timeout=300)
+    got = subprocess.run([sys.executable, os.path.join(
+        ROOT, "examples", "graph_analytics_torch.py"), "--scale", "8",
+        "--device", "cpu"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert want.returncode == 0, want.stderr[-3000:]
+    assert got.returncode == 0, got.stderr[-3000:]
+    lines = got.stdout.splitlines()
+    assert lines == want.stdout.splitlines()
+    assert sum(ln.startswith("DCRA-") for ln in lines) == 14

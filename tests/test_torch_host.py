@@ -58,7 +58,13 @@ for name in ('serve', 'serve.batching', 'serve.engine', 'serve.options',
              'dse.shardcheck', 'dse.space', 'dse.sweep', 'dse.route_compare',
              'dse.serve_compare', 'launch.mesh',
              'launch.sharding', 'launch.analytic', 'launch.roofline',
-             'launch.report', 'launch.dryrun', 'launch.hillclimb'):
+             'launch.report', 'launch.dryrun', 'launch.hillclimb',
+             'figures', 'figures.common', 'figures.fig4_topology',
+             'figures.fig5_sram', 'figures.fig6_pus', 'figures.fig7_freq',
+             'figures.fig8_hbm', 'figures.fig10_queues',
+             'figures.fig11_scaling', 'figures.moe_dispatch',
+             'figures.noc_routing', 'figures.roofline_table',
+             'figures.run'):
     assert 'repro_torch.' + name in sys.modules, name
 """
 
