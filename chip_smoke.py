@@ -12,6 +12,8 @@
     python3 chip_smoke.py --dryrun             # phase 19 alone (after the build)
     python3 chip_smoke.py --serve-out          # phase 20 alone (after the build)
     python3 chip_smoke.py --figures            # phase 21 alone (after the build)
+    python3 chip_smoke.py --benches [DIR]      # phase 22 alone (after the build)
+    python3 chip_smoke.py --bench-spread DIR...  # phase 22's ratios over passes
     python3 chip_smoke.py --repeat [SRC] [--deterministic]  # OLMoE run twice
 
 Phases, each reporting on its own lines; any failure raises and the
@@ -301,16 +303,46 @@ script exits non-zero with no result line:
    ``examples/graph_analytics_torch.py --distributed --scale 12`` on
    the card: the seven apps and the auto-configured BFS with no drop,
    each bit-identical to its oracle or within its float32 bound
-   (PageRank, SpMV), and the packaging table.
+   (PageRank, SpMV), and the packaging table. ``figures.run`` must list
+   the reference's twelve modules; its two timing benches run in phase
+   22 only;
+22. the two timing benches (``repro_torch.figures.route_bench``,
+   ``serve_bench``) and their gates: (1) ``route_bench --quick`` on the
+   card at its own reps (a sample a block of back-to-back calls of about
+   2 ms, each ratio the median over reps of one rep's two samples): one
+   ``bucket()`` round per impl (onehot, sort, the kernels) at 6 N x S
+   cells, and 6 rounds of a min-relay per impl in
+   lockstep (``bucket`` + ``reduce_received``) and pipelined
+   (``local_route_reduce``) at 3 cells, each impl's output and each
+   round cell's final state and drop stream asserted bit-identical
+   before timing; the rank kernel ``lookback``, the scatter ``staged``
+   and the reduce ``private`` only, from ``PATHS``; each cell's ms and
+   ratios, and the host's blocking reads in one round cell by impl and
+   mode (torch's sync debug mode); (2) ``serve_bench`` on 8 shards:
+   ``--smoke --depth 3`` (no build under load, no drop, a column equal
+   to a standalone launch, depth 3 equal to depth 1: ``RESULT ok``),
+   ``--chaos 0`` (a launch fault, a device fault and a host loss from 8
+   shards to 4, retries and the breaker, responses equal to the
+   fault-free run's: ``RESULT chaos ok``), ``--depth 3 --reps 101
+   --bench-out`` (101 alternations of the sync and overlapped drains,
+   every other pair overlapped first): requests/s and p50/p99; (3)
+   ``repro_torch.dse.route_compare`` and ``serve_compare`` of this
+   run's artifacts (``chiprun_out/benches``) against the committed
+   ``BENCH_route_torch.json`` and ``BENCH_serve_torch.json`` from the
+   card, each exiting 0. The whole
+   run gates ``serve_compare`` only; ``route_compare`` runs under
+   ``--benches``, since the kernels' op ratios move by more than half
+   the gate's tolerance from process to process.
 
-Each path of phases 4-7, 9-21 runs with every kernel's launch count set
+Each path of phases 4-7, 9-22 runs with every kernel's launch count set
 to 0 just before it and read just after; the kernel table sums them,
 and the run fails if a kernel of the table launched on no path. Each app
 and MoE path asserts from the route wrappers' ``PATHS`` that the scatter
 ran ``staged`` only, and the reduce ``atomic`` (BFS, PageRank, the
 server: n_local 65,536; one shard: 4,194,304) or ``private`` (the routed
-histogram: 64). The rank kernel runs on one path, one shard's pipelined
-BFS, on its one design (``lookback``, asserted the same way). Every number the script prints about the card stands beside
+histogram: 64). The rank kernel runs on its one design (``lookback``,
+asserted the same way) where the receive-reduce folds into admission:
+one shard's pipelined BFS and the route bench's pipelined rounds. Every number the script prints about the card stands beside
 ``nvidia-smi``'s name and power limit.
 The line before the last is the JSON kernel table (the gmm row carries
 its bf16 run under ``bf16_*`` keys, the flash row its float32 run under
@@ -5826,6 +5858,12 @@ NOC_RUNS = ((11, 8, 2),             # (RMAT scale, shards, pods): the
                                     # which SpMV and the histogram route in
                                     # two stages over 64 shards
 GA_SCALE = 12                       # examples/graph_analytics_torch.py
+#: ``figures.run``'s modules, the reference's twelve in its order; the
+#: two timing benches run in phase 22 only
+FIG_MODULES = ("fig4_topology", "fig5_sram", "fig6_pus", "fig7_freq",
+               "fig8_hbm", "fig10_queues", "fig11_scaling", "moe_dispatch",
+               "route_bench", "noc_routing", "serve_bench", "roofline_table")
+BENCH_MODULES = ("route_bench", "serve_bench")
 DRY_RESULTS = ROOT / "build" / "dryrun_results_torch.json"  # phase 19's
 
 
@@ -5857,22 +5895,28 @@ def csv_numbers(row):
 
 
 def figures_quick(device, totals):
-    """(1) ``figures.run`` at ``--quick`` on the card: every module ran, a
-    row a module at least (the roofline's pointer where no dry run is
-    written), every number finite; the route kernels it launched (its
-    ``noc_routing``) counted."""
+    """(1) ``figures.run`` at ``--quick`` on the card: it lists the
+    reference's twelve modules (:data:`FIG_MODULES`); every one but the
+    two timing benches (phase 22 times those) ran, a row a module at
+    least (the roofline's pointer where no dry run is written), every
+    number finite; the route kernels that ``noc_routing`` launched
+    counted."""
     import contextlib
     import io
     from repro_torch.figures import run
     out = io.StringIO()
+    names = [n for n, _ in run.figures(FIG_SCALE, device, True)]
+    if names != list(FIG_MODULES):
+        raise AssertionError(f"figures.run lists {names}")
+    names = [n for n in names if n not in BENCH_MODULES]
     with MainPath("figures.run --quick", ROUTE_KERNELS, totals,
                   STAGED_PRIVATE) as path:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            _, failures, seconds = run.run_all(FIG_SCALE, device)
+            _, failures, seconds = run.run_all(FIG_SCALE, device, True,
+                                               skip=BENCH_MODULES)
         wall = time.perf_counter() - t0
     blocks = csv_blocks(out.getvalue())
-    names = [n for n, _ in run.figures(FIG_SCALE, device)]
     bad = [(n, r) for n in blocks for r in blocks[n]
            if not all(map(math.isfinite, csv_numbers(r)))]
     if failures or list(blocks) != names or bad or any(
@@ -5883,8 +5927,9 @@ def figures_quick(device, totals):
     for row in blocks["moe_dispatch"]:
         log(f"figures moe_dispatch | {','.join(row)}")
     log(f"figures.run --quick (scale {FIG_SCALE}, cut from the paper's 16: "
-        f"the full set takes minutes of host numpy) on {device}: all "
-        f"{len(names)} modules ran, {sum(map(len, blocks.values()))} CSV "
+        f"the full set takes minutes of host numpy) on {device}: "
+        f"{len(names)} of its {len(FIG_MODULES)} modules ran (the benches "
+        f"in phase 22), {sum(map(len, blocks.values()))} CSV "
         f"lines, every number finite; {wall:.2f} s, by module "
         + ", ".join(f"{n} {seconds[n]:.2f}" for n in names)
         + f" s; launches {path.launches}, route designs {path.paths} [{SMI}]")
@@ -6015,6 +6060,305 @@ def run_figures(device, totals):
     for scale, n_dev, n_pods in NOC_RUNS:
         noc_run(scale, n_dev, n_pods, device, totals)
     graph_analytics(device, totals)
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the two timing benches, gated against the committed baselines
+# ---------------------------------------------------------------------------
+
+BENCH_OUT = ROOT / "chiprun_out" / "benches"   # this run's artifacts
+ROUTE_BASELINE = ROOT / "BENCH_route_torch.json"
+SERVE_BASELINE = ROOT / "BENCH_serve_torch.json"
+#: timing reps on an H100 (the gates fail a ratio 20 % / 15 % below its
+#: baseline, and a gated ratio must not move by half that from pass to
+#: pass): route_bench's own (0: about 150 ms of samples, each a block of
+#: about 2 ms, at most 100 an op cell and 50 a round cell; no count tried
+#: held the kernels' op ratios within 10 % from process to process, so
+#: the route gate runs under ``--benches`` only, see :data:`FULL_GATES`);
+#: serve_bench's alternations of the two drains, whose ratio moved 3.25 %
+#: and 6.55 % over two calls' passes at 101
+ROUTE_REPS = 0
+SERVE_REPS = 101
+#: the gates the whole run's phase 22 runs; ``--benches`` runs both
+FULL_GATES = ("serve_compare",)
+SERVE_SHARDS = 8
+#: the designs of the quick grid: the op cells and the lockstep rounds
+#: scatter ``staged``; every round's reduce (n_local 4,096-32,768) is
+#: ``private``; the pipelined rounds rank by ``lookback``
+ROUTE_DESIGNS = {"bucket_rank": "lookback", "bucket_scatter": "staged",
+                 "reduce_received": "private"}
+ROUTE_LOWERING = "cuda:lookback+private+staged"
+
+
+def captured(fn, *args):
+    """``(fn(*args), what it printed)``."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue()
+
+
+def host_reads(fn):
+    """The synchronising calls ``fn()`` makes (each a blocking read of
+    the card by the host), counted by torch's sync debug mode."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def bench_route(device, totals, out=BENCH_OUT):
+    """(1) ``route_bench --quick`` on the card: its own bit-identity
+    assertions (op cells: every impl's xb and drops; rounds: the final
+    state and drop stream of all six impl x mode pairs), the rank,
+    scatter and reduce kernels launched on :data:`ROUTE_DESIGNS` only,
+    the artifact's lowering and card; each cell's ms and ratios, and the
+    host reads of one round cell by impl and mode."""
+    from repro_torch.core.queues import round8
+    from repro_torch.figures import route_bench
+    fresh = out / ROUTE_BASELINE.name
+    argv = ["--quick", "--reps", str(ROUTE_REPS), "--out", str(fresh),
+            "--device", str(device)]
+    with MainPath("route_bench --quick", ("bucket_rank",) + ROUTE_KERNELS,
+                  totals, ROUTE_DESIGNS) as path:
+        t0 = time.perf_counter()
+        bench, _ = captured(route_bench.main, argv)
+        wall = time.perf_counter() - t0
+    if (bench["backend"], bench["pallas_lowering"]) != ("cuda",
+                                                        ROUTE_LOWERING):
+        raise AssertionError(f"route_bench: backend {bench['backend']}, "
+                             f"lowering {bench['pallas_lowering']}")
+    if f"{bench['device']['name']}, {bench['device']['power_limit']}" != SMI:
+        raise AssertionError(f"route_bench: card {bench['device']}")
+    for c in bench["cells"]:
+        sp = c["speedup_vs_onehot"]
+        log(f"route_bench op N={c['n']} S={c['s']} cap={c['cap']}: ms "
+            + ", ".join(f"{i} {c['ms'][i]:.4f}" for i in route_bench.IMPLS)
+            + f"; speedup_vs_onehot sort {sp['sort']:.4f}, pallas "
+            f"{sp['pallas']:.4f} [{SMI}]")
+    for c in bench["round_cells"]:
+        ms, sp = c["round_ms"], c["round_speedup"]
+        log(f"route_bench round N={c['n']} S={c['s']} cap={c['cap']} x "
+            f"{c['rounds']}: ms lockstep / pipelined "
+            + ", ".join(f"{i} {ms['lockstep'][i]:.4f} / "
+                        f"{ms['pipelined'][i]:.4f}"
+                        for i in route_bench.IMPLS)
+            + "; round_speedup " + ", ".join(
+                f"{i} {sp[i]:.4f}" for i in route_bench.IMPLS) + f" [{SMI}]")
+    n, s = route_bench.ROUND_QUICK_GRID[0]
+    inp = route_bench.round_inputs(n, s, device)
+    cap = round8(2 * n // s)
+    reads = {f"{i} {m}": host_reads(lambda i=i, m=m: route_bench.run_rounds(
+        inp, s, cap, i, m)) for i in route_bench.IMPLS
+        for m in route_bench.MODES}
+    log(f"route_bench --quick: {len(bench['cells'])} op cells, "
+        f"{len(bench['round_cells'])} round cells, every impl bit-identical; "
+        f"{wall:.2f} s; lowering {bench['pallas_lowering']}; launches "
+        f"{path.launches}, route designs {path.paths}; host reads of "
+        f"{route_bench.ROUNDS} rounds at N={n} S={s} by impl and mode "
+        f"{reads} [{SMI}]")
+
+
+def bench_serve(device, totals, out=BENCH_OUT):
+    """(2) ``serve_bench`` on :data:`SERVE_SHARDS` shards of the card:
+    the smoke leg at depth 3 (its assertions: no build under load, no
+    drop, a column equal to a standalone launch, depth 3 equal to depth
+    1), the chaos leg (seed 0: a launch fault, a device fault and a host
+    loss halving the fabric, retries and the breaker, the responses
+    equal to the fault-free run's) and the artifact at depth 3 over
+    :data:`SERVE_REPS` alternations of the two drains; each
+    leg's ``RESULT`` line, the scatter ``staged`` and the reduce
+    ``private``; requests/s and p50/p99."""
+    from repro_torch.figures import serve_bench
+    fresh = out / SERVE_BASELINE.name
+    shards = ["--devices", str(SERVE_SHARDS)]
+    legs = ((["--smoke", "--depth", "3"], "RESULT ok"),
+            (["--chaos", "0"], "RESULT chaos ok"),
+            (["--depth", "3", "--reps", str(SERVE_REPS), "--bench-out"],
+             None))
+    for leg, want in legs:
+        tag = f"serve_bench {' '.join(leg + shards)}"
+        argv = leg + ([str(fresh)] if want is None else []) + shards
+        with MainPath(tag, ROUTE_KERNELS, totals, STAGED_PRIVATE) as path:
+            t0 = time.perf_counter()
+            _, text = captured(serve_bench.main,
+                               argv + ["--device", str(device)])
+            wall = time.perf_counter() - t0
+        lines = text.splitlines()
+        if want is not None and want not in lines:
+            raise AssertionError(f"{tag}: no {want!r} in {lines[-3:]}")
+        said = [ln for ln in lines if ln.startswith("#")]
+        log(f"{tag}: {wall:.2f} s; " + " | ".join(said)
+            + f"; launches {path.launches}, route designs {path.paths} "
+            f"[{SMI}]")
+    bench = json.loads(fresh.read_text())
+    if bench["backend"] != "cuda" or f"{bench['device']['name']}, " \
+            f"{bench['device']['power_limit']}" != SMI:
+        raise AssertionError(f"serve_bench: {bench['backend']} "
+                             f"{bench.get('device')}")
+    for r in bench["rows"]:
+        log(f"serve_bench {r['mode']} (depth {r['depth']}, "
+            f"{bench['config']['requests']} requests, "
+            f"{bench['config']['devices']} shards): "
+            f"{r['throughput_rps']:.4f} requests/s, latency p50 "
+            f"{r['p50_latency_s'] * 1e3:.3f} ms p99 "
+            f"{r['p99_latency_s'] * 1e3:.3f} ms, device p50 "
+            f"{r['p50_device_s'] * 1e3:.3f} ms, {r['launches']} launches, "
+            f"{r['re_traces']} builds under load [{SMI}]")
+    log(f"serve_bench overlap_speedup {bench['overlap_speedup']:.4f} "
+        f"[{SMI}]")
+
+
+def gate(name, main, baseline, fresh):
+    """``main([baseline, fresh])`` (a ``repro_torch.dse`` gate) must
+    return 0; its lines are printed."""
+    if not baseline.is_file():
+        raise AssertionError(f"{name}: no committed baseline "
+                             f"{baseline.name} (this run's: {fresh})")
+    rc, text = captured(main, [str(baseline), str(fresh)])
+    for line in text.splitlines():
+        log(f"{name} | {line}")
+    if rc != 0:
+        raise AssertionError(f"{name} {baseline.name} {fresh}: exit {rc}")
+    log(f"{name} {baseline.name} -> this run's: exit 0 [{SMI}]")
+
+
+def run_benches(device, totals, out=BENCH_OUT,
+                gates=("route_compare", "serve_compare")):
+    """Phase 22: (1) :func:`bench_route`, (2) :func:`bench_serve`, then
+    the port's gates named in ``gates`` (``route_compare``,
+    ``serve_compare``) of this run's artifacts (in ``out``) against the
+    committed card baselines (both artifacts are written before either
+    gate runs)."""
+    from repro_torch.dse import route_compare, serve_compare
+    out.mkdir(parents=True, exist_ok=True)
+    bench_route(device, totals, out)
+    bench_serve(device, totals, out)
+    for name, main, baseline in (
+            ("route_compare", route_compare.main, ROUTE_BASELINE),
+            ("serve_compare", serve_compare.main, SERVE_BASELINE)):
+        if name in gates:
+            gate(name, main, baseline, out / baseline.name)
+        else:
+            log(f"{name}: under --benches only (its ratios' spread from "
+                f"process to process exceeds half its tolerance, PERF.md "
+                f"§5)")
+
+
+def gated_ratios(route, serve):
+    """``{name: ratio}`` of every ratio the two gates read: each op
+    cell's ``speedup_vs_onehot`` of sort and the kernels, each round
+    cell's ``round_speedup`` per impl, ``overlap_speedup``."""
+    out = {}
+    for c in route["cells"]:
+        for i in ("sort", "pallas"):
+            out[f"op {c['n']}x{c['s']} {i}"] = c["speedup_vs_onehot"][i]
+    for c in route["round_cells"]:
+        for i, v in c["round_speedup"].items():
+            out[f"round {c['n']}x{c['s']} {i}"] = v
+    out["overlap_speedup"] = serve["overlap_speedup"]
+    return out
+
+
+def median_baselines(routes, serves):
+    """The baselines of several passes: the route artifact with each ms
+    and ratio the median over the passes (the first pass's other
+    fields), and the serve artifact of the pass whose
+    ``overlap_speedup`` is the median (the lower one of an even count);
+    each records ``passes``."""
+    import statistics
+    route = json.loads(json.dumps(routes[0]))
+    for kind, key in (("cells", "ms"), ("cells", "speedup_vs_onehot"),
+                      ("round_cells", "round_speedup")):
+        for j, c in enumerate(route[kind]):
+            for i in c[key]:
+                c[key][i] = statistics.median(r[kind][j][key][i]
+                                              for r in routes)
+    for j, c in enumerate(route["round_cells"]):
+        for m, by in c["round_ms"].items():
+            for i in by:
+                by[i] = statistics.median(r["round_cells"][j]["round_ms"]
+                                          [m][i] for r in routes)
+    route["passes"] = len(routes)
+    serve = dict(sorted(serves, key=lambda b: b["overlap_speedup"])
+                 [(len(serves) - 1) // 2])
+    serve["passes"] = len(serves)
+    return route, serve
+
+
+def bench_spread(dirs):
+    """``--bench-spread DIR...``: each gated ratio over the passes whose
+    artifacts lie in ``DIR...`` (``max / min - 1``, against half the
+    gate's tolerance: 10 % route, 7.5 % serve), each pass's lowest ratio
+    against the committed baselines, and the median baselines
+    (:func:`median_baselines`) written to ``chiprun_out/benches/median``
+    and checked by both gates against every pass."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dse import route_compare, serve_compare
+    passes = [(json.loads((Path(d) / ROUTE_BASELINE.name).read_text()),
+               json.loads((Path(d) / SERVE_BASELINE.name).read_text()))
+              for d in dirs]
+    cards = {f"{b['device']['name']}, {b['device']['power_limit']}"
+             for p in passes for b in p}
+    ratios = [gated_ratios(*p) for p in passes]
+    committed = gated_ratios(json.loads(ROUTE_BASELINE.read_text()),
+                             json.loads(SERVE_BASELINE.read_text()))
+    worst = 0.0
+    for name in ratios[0]:
+        vals = [r[name] for r in ratios]
+        spread = max(vals) / min(vals) - 1
+        half = 0.075 if name == "overlap_speedup" else 0.10
+        worst = max(worst, spread / half)
+        log(f"spread {name}: {spread:.4f} (half its tolerance {half}) over "
+            + ", ".join(f"{v:.4f}" for v in vals))
+    for k, r in enumerate(ratios):
+        low = min(r, key=lambda n: r[n] / committed[n])
+        log(f"pass {k} ({dirs[k]}): lowest against the committed baseline "
+            f"{low} {r[low] / committed[low]:.4f}")
+    route, serve = median_baselines(*zip(*passes))
+    med = BENCH_OUT / "median"
+    med.mkdir(parents=True, exist_ok=True)
+    for name, bench in ((ROUTE_BASELINE.name, route),
+                        (SERVE_BASELINE.name, serve)):
+        (med / name).write_text(json.dumps(bench, indent=1, sort_keys=True)
+                                + "\n")
+    for d in dirs:
+        for main, name in ((route_compare.main, ROUTE_BASELINE.name),
+                           (serve_compare.main, SERVE_BASELINE.name)):
+            rc, _ = captured(main, [str(med / name), str(Path(d) / name)])
+            log(f"{name} median of {len(dirs)} -> {d}: exit {rc}")
+    log(f"{len(dirs)} passes on {sorted(cards)}: the widest spread is "
+        f"{worst:.4f} of half its tolerance; median baselines in {med}")
+    return 0
+
+
+def benches_only(out=BENCH_OUT):
+    """``--benches [DIR]``: the build and phase 22 alone, its artifacts
+    in ``DIR`` (default ``chiprun_out/benches``); its launch counts are
+    printed, no kernel table."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    global SMI
+    SMI = card_name()
+    log(f"card: {SMI} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    _build.build()
+    t0 = phase("build", t0)
+    totals = {k: 0 for k in SOURCES}
+    run_benches(torch.device(*CARD), totals, out)
+    phase("22 (route_bench, serve_bench, their gates)", t0)
+    log(f"launches {totals}")
+    return 0
 
 
 def figures_only():
@@ -6363,6 +6707,8 @@ def phase(name, t0):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--bench-spread"]:        # reads files only
+        return bench_spread(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -6400,6 +6746,9 @@ def main() -> int:
         return serve_out_only()
     if sys.argv[1:2] == ["--figures"]:
         return figures_only()
+    if sys.argv[1:2] == ["--benches"]:
+        return benches_only(Path(sys.argv[2]) if len(sys.argv) > 2
+                            else BENCH_OUT)
     if sys.argv[1:2] == ["--serve-out-worker"]:
         return serve_out_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--scale-out-worker"]:
@@ -6565,6 +6914,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_figures(device, totals)
     t0 = phase("21 (figures, noc_routing, graph analytics)", t0)
+
+    # ---- 22: the two timing benches and their gates ------------------------
+    torch.cuda.empty_cache()
+    run_benches(device, totals, gates=FULL_GATES)
+    t0 = phase("22 (route_bench, serve_bench, the serve gate)", t0)
 
     rows = {k: rows[k] for k in SOURCES}           # the table's order
     for k in rows:

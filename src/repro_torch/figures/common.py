@@ -13,6 +13,7 @@ numbers need the cycle-accurate Dalorex simulator).
 """
 from __future__ import annotations
 
+import subprocess
 from typing import Dict, List, Optional, Tuple
 
 from ..core.task_engine import EngineConfig
@@ -50,3 +51,15 @@ def emit(rows_csv: List[Tuple], header: str):
     print(header)
     for row in rows_csv:
         print(",".join(str(x) for x in row))
+
+
+def card_record(device) -> Dict[str, str]:
+    """``{"name", "power_limit"}`` of the card ``device`` names, as
+    ``nvidia-smi --query-gpu=name,power.limit`` gives them: what a
+    benchmark artifact measured on the card carries beside its times."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(device.index or 0),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    name, limit = out.strip().rsplit(", ", 1)
+    return {"name": name, "power_limit": limit}

@@ -139,13 +139,16 @@ def _raise_on(err: int, what: str) -> None:
 
 def onehot_rank(dest, valid, n_buckets):
     """The one-hot cumsum rank (``repro/kernels/route.py:73-81``):
-    O(N*S) memory; entries of invalid tasks are unspecified."""
-    onehot = torch.nn.functional.one_hot(dest.long().clamp(0, n_buckets - 1),
-                                         n_buckets).to(torch.int32)
-    onehot = onehot * _admitted(dest, valid, n_buckets)[..., None]
-    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
-    return torch.gather(pos, 2, dest.long().clamp(0, n_buckets - 1)[..., None]
-                        )[..., 0]
+    O(N*S) memory; entries of invalid tasks are unspecified. The one-hot
+    is laid out ``[S, B, N]`` so the cumsum runs along the innermost
+    axis: along N of ``[S, N, B]`` it took 48 ms at N 131,072, B 128 on
+    an H100 (``route_bench``), linear in N."""
+    d = dest.long().clamp(0, n_buckets - 1)
+    buckets = torch.arange(n_buckets, device=dest.device)
+    onehot = ((d[:, None, :] == buckets[None, :, None])
+              & _admitted(dest, valid, n_buckets)[:, None, :])
+    pos = torch.cumsum(onehot, dim=2, dtype=torch.int32) - 1
+    return torch.gather(pos, 1, d[:, None, :])[:, 0]
 
 
 def _sorted_runs(dest, valid, n_buckets):

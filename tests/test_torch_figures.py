@@ -30,7 +30,7 @@ FIGURES = ("fig4_topology", "fig5_sram", "fig6_pus", "fig7_freq",
            "fig8_hbm", "fig10_queues", "fig11_scaling")
 SCALE = 10
 MODULES = FIGURES + ("common", "moe_dispatch", "noc_routing",
-                     "roofline_table", "run")
+                     "roofline_table", "route_bench", "run", "serve_bench")
 
 
 def _lines(capsys, fn, *args):
@@ -194,7 +194,7 @@ def test_noc_routing_prints_the_reference_rows(noc, capsys):
 def test_run_names_a_failing_figure_and_exits_1(monkeypatch, capsys):
     from repro_torch.figures import run
 
-    def broken(scale, device=None):
+    def broken(scale, device=None, quick=False):
         def boom():
             raise RuntimeError("boom")
         return [("fig5_sram", lambda: None), ("fig4_topology", boom),
@@ -214,23 +214,38 @@ def test_run_runs_every_module_in_the_reference_order(monkeypatch):
     calls = []
     names = [n for n, _ in run.figures(9, "cpu")]
     text = open(os.path.join(ROOT, "benchmarks", "run.py")).read()
-    want = [n for n in re.findall(r'\("(\w+)",', text) if n in names]
+    want = re.findall(r'\("(\w+)",', text)
+    assert len(want) == 12
     assert names == want
     assert set(names) == set(MODULES) - {"common", "run"}
-    monkeypatch.setattr(run, "figures", lambda scale, device=None: [
-        (n, lambda n=n: calls.append((n, scale, device))) for n in names])
+    monkeypatch.setattr(run, "figures", lambda scale, device=None, quick=False: [
+        (n, lambda n=n: calls.append((n, scale, device, quick)))
+        for n in names])
     run.main(["--scale", "9", "--device", "cpu"])
-    assert calls == [(n, 9, "cpu") for n in names]
+    run.main(["--quick", "--device", "cpu"])
+    assert calls == ([(n, 9, "cpu", False) for n in names]
+                     + [(n, 12, "cpu", True) for n in names])
 
 
-def test_run_quick_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="2")
-    out = subprocess.run([sys.executable, "-m", "repro_torch.figures.run",
-                          "--scale", "9", "--device", "cpu"], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    heads = [ln for ln in out.stdout.splitlines() if ln.startswith("== ")]
-    assert len(heads) == 10
+def test_run_quick_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Every module in this process, the route bench's grids cut to one
+    cell each (its artifact written under ``build/`` of ``tmp_path``,
+    never over the committed baseline's name in the working
+    directory)."""
+    from repro_torch.figures import route_bench, run
+    for grid in ("FULL_GRID", "QUICK_GRID"):
+        monkeypatch.setattr(route_bench, grid, [(4096, 8)])
+    for grid in ("ROUND_FULL_GRID", "ROUND_QUICK_GRID"):
+        monkeypatch.setattr(route_bench, grid, [(16384, 16)])
+    monkeypatch.chdir(tmp_path)
+    run.main(["--scale", "9", "--device", "cpu"])
+    out = capsys.readouterr()
+    heads = [ln for ln in out.out.splitlines() if ln.startswith("== ")]
+    assert len(heads) == 12, out.err[-3000:]
+    assert "FAILED" not in out.err
+    assert not (tmp_path / "BENCH_route_torch.json").exists()
+    bench = json.loads((tmp_path / run.ROUTE_OUT).read_text())
+    assert bench["quick"] is False and len(bench["cells"]) == 1
 
 
 def test_figures_import_neither_jax_nor_the_reference():
@@ -249,5 +264,6 @@ def test_figures_import_neither_jax_nor_the_reference():
         assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}, (path,
                                                                      tops)
         torch_ok = os.path.basename(path) in ("noc_routing.py",
-                                              "moe_dispatch.py")
+                                              "moe_dispatch.py",
+                                              "route_bench.py")
         assert ("torch" in tops) == torch_ok, path

@@ -64,7 +64,7 @@ for name in ('serve', 'serve.batching', 'serve.engine', 'serve.options',
              'figures.fig8_hbm', 'figures.fig10_queues',
              'figures.fig11_scaling', 'figures.moe_dispatch',
              'figures.noc_routing', 'figures.roofline_table',
-             'figures.run'):
+             'figures.route_bench', 'figures.run', 'figures.serve_bench'):
     assert 'repro_torch.' + name in sys.modules, name
 """
 
