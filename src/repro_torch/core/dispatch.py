@@ -34,6 +34,7 @@ import torch
 
 from ..models.common import swiglu
 from ..models.moe import topk
+from . import trace
 from .fabric import Fabric
 from .queues import QueueConfig
 from .routing import (bucket, fused_all_to_all, gather_rows, inverse_map,
@@ -134,13 +135,15 @@ def _bucket_counts(dest, valid, task_slot, n_buckets):
 
 def _expert_ffn(xe, wg, wu, wd, fab: Fabric, tp_axis, n_tp):
     """xe [S, E_l, C, D]; wg/wu [S, E_l, D, F_l]; wd [S, E_l, F_l, D] ->
-    [S, E_l, C, D]; with a tp-sharded F the partial sums add over tp."""
-    dt = xe.dtype
-    h = swiglu(torch.matmul(xe, wg.to(dt)), torch.matmul(xe, wu.to(dt)))
-    y = torch.matmul(h, wd.to(dt))
-    if n_tp > 1:
-        y = fab.psum(y, tp_axis)
-    return y
+    [S, E_l, C, D]; with a tp-sharded F the partial sums add over tp.
+    Traced as ``moe.ffn``."""
+    with trace.span("moe.ffn"):
+        dt = xe.dtype
+        h = swiglu(torch.matmul(xe, wg.to(dt)), torch.matmul(xe, wu.to(dt)))
+        y = torch.matmul(h, wd.to(dt))
+        if n_tp > 1:
+            y = fab.psum(y, tp_axis)
+        return y
 
 
 def combine(yb1: torch.Tensor, slot_of_task: torch.Tensor,
@@ -166,7 +169,18 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
 
     ``queues`` overrides the dispatch queue sizing; the default derives
     it from ``cfg.moe.capacity_factor`` (:func:`dispatch_queues`).
+
+    Traced as ``moe``, with ``moe.route`` (router, top-k, the buckets and
+    the gathers before the FFN), ``moe.ffn``, ``moe.combine`` (the
+    return, the combine, aux and the output's layout) and the ``wire``
+    spans of the exchanges inside it; the shards' copies of ``x`` and
+    the weights and the statistics are the root's own.
     """
+    with trace.span("moe"):
+        return _moe_dcra(params, x, cfg, info, queues, return_stats)
+
+
+def _moe_dcra(params, x, cfg, info, queues, return_stats):  # noqa: PLR0917
     mc = cfg.moe
     if mc is None:
         raise ValueError(f"{cfg.name} has no MoE config")
@@ -239,107 +253,115 @@ def moe_dcra(params, x: torch.Tensor, cfg, info: MeshInfo,
         wu = fab.all_gather(wu, info.data_axis, 1)
         wd = fab.all_gather(wd, info.data_axis, 2)
 
-    # ---- routing (task spawning) --------------------------------------
-    logits = torch.matmul(xf.float(), router.float())        # [S, T_l, E]
-    probs = torch.softmax(logits, dim=-1)
-    gates, eids = topk(probs, K)                             # [S, T_l, K]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    eids_f = eids.reshape(S, T_l * K).to(torch.int32)
-    gates_f = gates.reshape(S, T_l * K).float()
-    src_f = torch.arange(T_l, device=dev, dtype=torch.int32).repeat_interleave(
-        K).expand(S, -1).contiguous()
-    owner = eids_f // E_local                                # global shard
-    cap1 = queues.channel_cap("dispatch", T_l * K, n_ex)
-    all_valid = torch.ones(S, T_l * K, dtype=torch.bool, device=dev)
-    group_dims = fab.axis_dims(grp)
-    seen = {}
+    with trace.span("moe.route"):
+        # ---- routing (task spawning) --------------------------------------
+        logits = torch.matmul(xf.float(), router.float())        # [S, T_l, E]
+        probs = torch.softmax(logits, dim=-1)
+        gates, eids = topk(probs, K)                             # [S, T_l, K]
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        eids_f = eids.reshape(S, T_l * K).to(torch.int32)
+        gates_f = gates.reshape(S, T_l * K).float()
+        src_f = torch.arange(T_l, device=dev, dtype=torch.int32
+                             ).repeat_interleave(K).expand(S, -1).contiguous()
+        owner = eids_f // E_local                                # global shard
+        cap1 = queues.channel_cap("dispatch", T_l * K, n_ex)
+        all_valid = torch.ones(S, T_l * K, dtype=torch.bool, device=dev)
+        group_dims = fab.axis_dims(grp)
+        seen = {}
 
-    def _route(stage, dest, valid, aux, n_buckets, cap):
-        # the buckets carry only their int columns: a zero f32 payload
-        dummy = torch.zeros(S, dest.shape[1], 1, device=dev)
-        _, ints, task_slot, _ = bucket(dummy, dest, valid, aux, n_buckets,
-                                       cap, impl=impl)
-        if return_stats:
-            seen[stage] = (dest, valid, task_slot, n_buckets, cap)
-        return ints, task_slot
+        def _route(stage, dest, valid, aux, n_buckets, cap):
+            # the buckets carry only their int columns: a zero f32 payload
+            dummy = torch.zeros(S, dest.shape[1], 1, device=dev)
+            _, ints, task_slot, _ = bucket(dummy, dest, valid, aux, n_buckets,
+                                           cap, impl=impl)
+            if return_stats:
+                seen[stage] = (dest, valid, task_slot, n_buckets, cap)
+            return ints, task_slot
 
-    # Every gather below passes its inverse (each row's readers in order:
-    # a bucket's task_slot), so its gradient is gathered back and added
-    # in a fixed order; token t's K tasks are t*K..t*K+K-1 (src_f).
-    if not spans_pods:
-        # ---- single-stage fused a2a (tile-NoC) ------------------------
-        (eid1, tok1), slot_of_task = _route(
-            "dispatch", owner, all_valid, [eids_f % E_local, src_f], n_ex,
-            cap1)
-        xb1 = gather_rows(xf, tok1, slot_of_task, K)
-        xr, (eidr,) = fused_all_to_all(xb1, [eid1], fab.shape, group_dims,
-                                       xchg)
-    else:
-        # ---- stage 1 over the group (tile-NoC) ------------------------
-        e_coord = owner % n_ex
-        p_coord = owner // n_ex
-        (pc1, eid1, tok1), slot_of_task = _route(
-            "dispatch", e_coord, all_valid,
-            [p_coord, eids_f % E_local, src_f], n_ex, cap1)
-        xb1 = gather_rows(xf, tok1, slot_of_task, K)
-        xs1, (pcs, eids1) = fused_all_to_all(xb1, [pc1, eid1], fab.shape,
-                                             group_dims, xchg)
-        n1 = xs1.shape[1]
-        # ---- stage 2 over the pod axis (die-NoC portal) ---------------
-        cap2 = queues.channel_cap("portal", n1, n_pod)
-        arange1 = torch.arange(n1, device=dev, dtype=torch.int32).expand(
-            S, -1).contiguous()
-        (eid2, slot1_of_s2), slot2_of_s1 = _route(
-            "portal", pcs.clamp(min=0), pcs >= 0, [eids1, arange1], n_pod,
-            cap2)
-        xb2 = gather_rows(xs1, slot1_of_s2, slot2_of_s1)
-        xr, (eidr,) = fused_all_to_all(xb2, [eid2], fab.shape,
-                                       fab.axis_dims(info.pod_axis), xchg)
+        # Every gather below passes its inverse (each row's readers in order:
+        # a bucket's task_slot), so its gradient is gathered back and added
+        # in a fixed order; token t's K tasks are t*K..t*K+K-1 (src_f).
+        if not spans_pods:
+            # ---- single-stage fused a2a (tile-NoC) ------------------------
+            (eid1, tok1), slot_of_task = _route(
+                "dispatch", owner, all_valid, [eids_f % E_local, src_f], n_ex,
+                cap1)
+            xb1 = gather_rows(xf, tok1, slot_of_task, K)
+            xr, (eidr,) = fused_all_to_all(xb1, [eid1], fab.shape, group_dims,
+                                           xchg)
+        else:
+            # ---- stage 1 over the group (tile-NoC) ------------------------
+            e_coord = owner % n_ex
+            p_coord = owner // n_ex
+            (pc1, eid1, tok1), slot_of_task = _route(
+                "dispatch", e_coord, all_valid,
+                [p_coord, eids_f % E_local, src_f], n_ex, cap1)
+            xb1 = gather_rows(xf, tok1, slot_of_task, K)
+            xs1, (pcs, eids1) = fused_all_to_all(xb1, [pc1, eid1], fab.shape,
+                                                 group_dims, xchg)
+            n1 = xs1.shape[1]
+            # ---- stage 2 over the pod axis (die-NoC portal) ---------------
+            cap2 = queues.channel_cap("portal", n1, n_pod)
+            arange1 = torch.arange(n1, device=dev, dtype=torch.int32).expand(
+                S, -1).contiguous()
+            (eid2, slot1_of_s2), slot2_of_s1 = _route(
+                "portal", pcs.clamp(min=0), pcs >= 0, [eids1, arange1], n_pod,
+                cap2)
+            xb2 = gather_rows(xs1, slot1_of_s2, slot2_of_s1)
+            xr, (eidr,) = fused_all_to_all(xb2, [eid2], fab.shape,
+                                           fab.axis_dims(info.pod_axis), xchg)
+
+        N_r = xr.shape[1]
+        validr = eidr >= 0
+        xe = None
+        if E_local > 1:
+            # second-level IQ: bucket the received tasks by local expert
+            cap_e = queues.channel_cap("expert", N_r, E_local)
+            arange_r = torch.arange(N_r, device=dev, dtype=torch.int32).expand(
+                S, -1).contiguous()
+            (srce,), slote_of_r = _route("expert", eidr.clamp(min=0), validr,
+                                         [arange_r], E_local, cap_e)
+            xe = gather_rows(xr, srce, slote_of_r)
 
     # ---- local expert execution (the owner computes) -----------------
-    N_r = xr.shape[1]
-    validr = eidr >= 0
-    xe = None
     if E_local == 1:
         ye = _expert_ffn(xr[:, None].to(xb.dtype), wg, wu, wd, fab,
                          info.tp_axis, n_tp)[:, 0]
-        ye = ye * validr[..., None].to(ye.dtype)
     else:
-        # second-level IQ: bucket the received tasks by local expert
-        cap_e = queues.channel_cap("expert", N_r, E_local)
-        arange_r = torch.arange(N_r, device=dev, dtype=torch.int32).expand(
-            S, -1).contiguous()
-        (srce,), slote_of_r = _route("expert", eidr.clamp(min=0), validr,
-                                     [arange_r], E_local, cap_e)
-        xe = gather_rows(xr, srce, slote_of_r)
-        ye_b = _expert_ffn(xe.view(S, E_local, cap_e, D).to(xb.dtype),
-                           wg, wu, wd, fab, info.tp_axis, n_tp)
-        ye = slot_scatter(ye_b.reshape(S, E_local * cap_e, D),
-                          srce.clamp(min=0), srce >= 0, N_r)
+        ye = _expert_ffn(xe.view(S, E_local, cap_e, D).to(xb.dtype),
+                         wg, wu, wd, fab, info.tp_axis, n_tp)
 
-    # ---- return path (retrace the NoC route) -------------------------
-    if not spans_pods:
-        yb1 = noc_all_to_all(ye, fab.shape, group_dims, xchg)
-    else:
-        y2 = noc_all_to_all(ye, fab.shape, fab.axis_dims(info.pod_axis),
-                            xchg)
-        y1 = slot_scatter(y2, slot1_of_s2.clamp(min=0), slot1_of_s2 >= 0, n1)
-        yb1 = noc_all_to_all(y1, fab.shape, group_dims, xchg)
+    with trace.span("moe.combine"):
+        if E_local == 1:
+            ye = ye * validr[..., None].to(ye.dtype)
+        else:
+            ye = slot_scatter(ye.reshape(S, E_local * cap_e, D),
+                              srce.clamp(min=0), srce >= 0, N_r)
 
-    out = combine(yb1, slot_of_task, gates_f, K)       # [S, T_l, D] f32
+        # ---- return path (retrace the NoC route) -------------------------
+        if not spans_pods:
+            yb1 = noc_all_to_all(ye, fab.shape, group_dims, xchg)
+        else:
+            y2 = noc_all_to_all(ye, fab.shape, fab.axis_dims(info.pod_axis),
+                                xchg)
+            y1 = slot_scatter(y2, slot1_of_s2.clamp(min=0), slot1_of_s2 >= 0,
+                              n1)
+            yb1 = noc_all_to_all(y1, fab.shape, group_dims, xchg)
 
-    # aux: load-balance loss, averaged over all shards (every shard's
-    # value gathered, so the mean adds them in one order on any fabric)
-    frac = torch.nn.functional.one_hot(eids, E).float().sum(2).mean(1)
-    aux = fab.unshard((E * (frac * probs.mean(1)).sum(-1))[:, None],
-                      (fab.axis_names,)).mean()
-    out = out.view(S, T_l, D)
-    if do_slice:   # restore the expert-replicated layout
-        out = fab.all_gather(out, info.expert_axis, 0)
-    out = out.reshape(S, b_l, s_l, D).to(x.dtype)
-    if tp_gather:  # back to this rank's seq shard
-        out = fab.shard_slice(out, info.tp_axis, 1)
-    out = fab.unshard(out, x_spec)
+        out = combine(yb1, slot_of_task, gates_f, K)       # [S, T_l, D] f32
+
+        # aux: load-balance loss, averaged over all shards (every shard's
+        # value gathered, so the mean adds them in one order on any fabric)
+        frac = torch.nn.functional.one_hot(eids, E).float().sum(2).mean(1)
+        aux = fab.unshard((E * (frac * probs.mean(1)).sum(-1))[:, None],
+                          (fab.axis_names,)).mean()
+        out = out.view(S, T_l, D)
+        if do_slice:   # restore the expert-replicated layout
+            out = fab.all_gather(out, info.expert_axis, 0)
+        out = out.reshape(S, b_l, s_l, D).to(x.dtype)
+        if tp_gather:  # back to this rank's seq shard
+            out = fab.shard_slice(out, info.tp_axis, 1)
+        out = fab.unshard(out, x_spec)
     if not return_stats:
         return out, aux
     # the statistics are global: every shard's, gathered across processes

@@ -40,6 +40,7 @@ import torch
 
 from ..kernels import route as kroute
 from ..kernels.route import resolve_route_impl
+from . import trace
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +240,15 @@ def noc_all_to_all(x, shape: Sequence[int], dim, exchange=None):
     C]`` holds, per shard, one block of ``rows`` for each of the ``B``
     peers. Shard ``d`` receives block ``d`` of every peer, in peer
     order. ``exchange`` (a distributed fabric's) runs it across
-    processes on this process's shards."""
+    processes on this process's shards. Traced as ``wire``; the counter
+    ``wire_slots`` takes its ``S * B * rows`` slots."""
+    trace.count("wire_slots", x.shape[0] * x.shape[1])
+    with trace.span("wire"):
+        return _exchange(x, shape, dim, exchange)
+
+
+def _exchange(x, shape: Sequence[int], dim, exchange=None):
+    """:func:`noc_all_to_all`'s transpose (or ``exchange``), untraced."""
     dims = (dim,) if isinstance(dim, int) else tuple(dim)
     if exchange is not None:
         return exchange(x, shape, dims)
@@ -321,8 +330,10 @@ def fused_all_to_all(vals, int_cols, shape: Sequence[int], dim,
     """Deliver value + int32 columns in ONE exchange over fabric axis
     ``dim`` or a tuple of axes (see :func:`pack_wire` and
     :func:`noc_all_to_all`)."""
-    packed, meta = pack_wire(vals, int_cols)
-    return unpack_wire(noc_all_to_all(packed, shape, dim, exchange), meta)
+    with trace.span("wire"):
+        packed, meta = pack_wire(vals, int_cols)
+        return unpack_wire(noc_all_to_all(packed, shape, dim, exchange),
+                           meta)
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +347,10 @@ def owner_route(vals, slot_ids, owner, valid, n_shards, cap, impl=None,
     n_drop [S])``; ``recv_slot`` is -1 for an empty queue entry."""
     xb, (slot_b,), _, n_drop = bucket(vals[..., None], owner, valid,
                                       [slot_ids], n_shards, cap, impl=impl)
-    recv_vals, (recv_slot,) = fused_all_to_all(xb, [slot_b], (n_shards,), 0,
-                                               exchange)
-    return recv_slot, recv_vals[..., 0].contiguous(), n_drop
+    with trace.span("wire"):
+        recv_vals, (recv_slot,) = fused_all_to_all(xb, [slot_b], (n_shards,),
+                                                   0, exchange)
+        return recv_slot, recv_vals[..., 0].contiguous(), n_drop
 
 
 def owner_route_hier(vals, slot_ids, owner, valid, n_intra, n_pods, cap1,
@@ -357,8 +369,10 @@ def owner_route_hier(vals, slot_ids, owner, valid, n_intra, n_pods, cap1,
                                         exchange)
     xb2, (slot2_b,), _, drop2 = bucket(v1, pc1.clamp(min=0), pc1 >= 0,
                                        [slot1], n_pods, cap2, impl=impl)
-    v2, (recv_slot,) = fused_all_to_all(xb2, [slot2_b], shape, 0, exchange)
-    return recv_slot, v2[..., 0].contiguous(), drop1 + drop2
+    with trace.span("wire"):
+        v2, (recv_slot,) = fused_all_to_all(xb2, [slot2_b], shape, 0,
+                                            exchange)
+        return recv_slot, v2[..., 0].contiguous(), drop1 + drop2
 
 
 # ---------------------------------------------------------------------------
@@ -376,36 +390,41 @@ def _a2a_with_signal(vals, int_cols, shape: Sequence[int], dim: int,
     of the tasks. Returns ``(recv [S, B, rows + 1, C], meta, gsignal
     [S])``: ``gsignal`` is the sum of the signals of the peers a shard
     received from; :func:`_strip` gives the task rows, value-identical
-    to :func:`fused_all_to_all`'s."""
-    cols, meta = _wire_columns(vals, int_cols)
-    s, total = cols[0].shape[:2]
-    n_blocks = shape[dim]
-    rows = total // n_blocks
-    c = sum(col.shape[-1] for col in cols)
-    wire = cols[0].new_empty(s, n_blocks, rows + 1, c)
-    j = 0
-    for col in cols:
-        w = col.shape[-1]
-        wire[:, :, :rows, j:j + w] = col.view(s, n_blocks, rows, w)
-        j += w
-    wire[:, :, rows] = 0.0
-    wire[:, :, rows, 0] = signal.to(torch.int32).view(torch.float32)[:, None]
-    recv = noc_all_to_all(wire.view(s, n_blocks * (rows + 1), c), shape,
-                          dim, exchange).view(s, n_blocks, rows + 1, c)
-    gsignal = recv[:, :, rows, 0].contiguous().view(torch.int32).sum(
-        1, dtype=torch.int32)
-    return recv, meta, gsignal
+    to :func:`fused_all_to_all`'s. Traced as ``wire``; ``wire_slots``
+    takes the task rows, not the signal rows."""
+    with trace.span("wire"):
+        cols, meta = _wire_columns(vals, int_cols)
+        s, total = cols[0].shape[:2]
+        n_blocks = shape[dim]
+        rows = total // n_blocks
+        c = sum(col.shape[-1] for col in cols)
+        wire = cols[0].new_empty(s, n_blocks, rows + 1, c)
+        j = 0
+        for col in cols:
+            w = col.shape[-1]
+            wire[:, :, :rows, j:j + w] = col.view(s, n_blocks, rows, w)
+            j += w
+        wire[:, :, rows] = 0.0
+        wire[:, :, rows, 0] = signal.to(torch.int32).view(
+            torch.float32)[:, None]
+        trace.count("wire_slots", s * n_blocks * rows)
+        recv = _exchange(wire.view(s, n_blocks * (rows + 1), c), shape,
+                         dim, exchange).view(s, n_blocks, rows + 1, c)
+        gsignal = recv[:, :, rows, 0].contiguous().view(torch.int32).sum(
+            1, dtype=torch.int32)
+        return recv, meta, gsignal
 
 
 def _unpack_signalled(recv: torch.Tensor, meta: tuple):
     """:func:`unpack_wire` of a signalled wire's task rows (``[S, B, rows
     + 1, C]`` -> values and ints ``[S, B*rows, ...]``), each column read
     once, with no copy of the whole wire."""
-    s, b, rows1, _ = recv.shape
-    v, ints = unpack_wire(recv[:, :, :rows1 - 1], meta)
-    m = b * (rows1 - 1)
-    ints = [a.reshape(s, m) for a in ints]
-    return (None if v is None else v.reshape(s, m, *v.shape[3:])), ints
+    with trace.span("wire"):
+        s, b, rows1, _ = recv.shape
+        v, ints = unpack_wire(recv[:, :, :rows1 - 1], meta)
+        m = b * (rows1 - 1)
+        ints = [a.reshape(s, m) for a in ints]
+        return (None if v is None else v.reshape(s, m, *v.shape[3:])), ints
 
 
 def owner_route_start(vals, slot_ids, owner, valid, n_shards, cap, signal,
@@ -425,8 +444,9 @@ def owner_route_start(vals, slot_ids, owner, valid, n_shards, cap, signal,
 def owner_route_finish(recv, meta):
     """Consume half: ``(recv_slot, recv_val)`` from a carried wire, equal
     to :func:`owner_route`'s (feed them to :func:`reduce_received`)."""
-    recv_vals, (recv_slot,) = _unpack_signalled(recv, meta)
-    return recv_slot, recv_vals[..., 0].contiguous()
+    with trace.span("wire"):
+        recv_vals, (recv_slot,) = _unpack_signalled(recv, meta)
+        return recv_slot, recv_vals[..., 0].contiguous()
 
 
 def owner_route_hier_start(vals, slot_ids, owner, valid, n_intra, n_pods,

@@ -46,6 +46,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.fabric import Fabric
 from ..core.queues import QueueConfig
 from ..core.routing import (local_route_reduce, owner_route,
@@ -55,6 +56,7 @@ from ..core.routing import (local_route_reduce, owner_route,
                             resolve_hier_caps, resolve_route_impl)
 from ..core.task_engine import EngineConfig, TaskEngine
 from ..core.topology import TileGrid
+from ..core.trace import CACHE_STATS, HOST_READS
 from .options import LaunchOptions, resolve_options
 
 
@@ -254,8 +256,8 @@ def _resolve_queues(opts: LaunchOptions, task: str, default_factor: float
 # the round-function cache
 # ---------------------------------------------------------------------------
 
+# CACHE_STATS and HOST_READS are ``core/trace.py``'s, re-exported here
 _CACHE: Dict[tuple, Callable] = {}
-CACHE_STATS = {"hits": 0, "misses": 0, "kernel_traces": 0}
 
 
 def cache_stats() -> Dict[str, int]:
@@ -284,13 +286,11 @@ def cache_keys() -> Tuple[tuple, ...]:
     return tuple(_CACHE)
 
 
-#: blocking host reads of device values inside the round loops since the
-#: last :func:`reset_host_reads` (the lockstep loop's convergence test,
-#: the pipelined loop's wait on a flag); ``chip_smoke.py`` reads it
-HOST_READS = {"reads": 0}
-
-
 def reset_host_reads() -> None:
+    """Zero :data:`HOST_READS`: the round loops' blocking host reads of
+    device values (the lockstep loop's convergence test, the pipelined
+    loop's wait on a flag), read by ``chip_smoke.py`` and by the
+    benchmark's ``host_reads_per_round.graph``."""
     HOST_READS["reads"] = 0
 
 
@@ -540,6 +540,7 @@ class ProgramLaunch:
         self._fab, self._outs, self._staging = fab, outs, staging
         self._n, self._n_states = n, n_states
         self._result = None
+        self._trace_root = trace.current_root()   # the launch's span
         self._event = None
         if fab.device.type == "cuda":
             self._event = torch.cuda.Event()
@@ -557,22 +558,24 @@ class ProgramLaunch:
 
     def result(self):
         if self._result is None:
-            self.block()
-            outs = self._outs
-            state, (r, msgs, drops) = outs[:self._n_states], outs[-3:]
-            r = int(r)
-            stats = AppStats(
-                rounds=r, messages=msgs[:r].cpu().numpy().astype(np.int64),
-                drops=drops[:r].cpu().numpy().astype(np.int64))
-            fab = self._fab
-            if fab.is_multiprocess:          # every process: global states
-                state = fab.gather_shards(torch.stack(state, 1).cpu()
-                                          ).unbind(1)
-            states = tuple(np.asarray(from_owner_layout(
-                s.reshape(-1).cpu().numpy(), self._n, fab.n_devices),
-                np.float64) for s in state)
-            self._result = (states, stats)
-            self._outs = self._staging = None
+            with trace.span("result", root=self._trace_root):
+                self.block()
+                outs = self._outs
+                state, (r, msgs, drops) = outs[:self._n_states], outs[-3:]
+                r = int(r)
+                stats = AppStats(
+                    rounds=r,
+                    messages=msgs[:r].cpu().numpy().astype(np.int64),
+                    drops=drops[:r].cpu().numpy().astype(np.int64))
+                fab = self._fab
+                if fab.is_multiprocess:      # every process: global states
+                    state = fab.gather_shards(torch.stack(state, 1).cpu()
+                                              ).unbind(1)
+                states = tuple(np.asarray(from_owner_layout(
+                    s.reshape(-1).cpu().numpy(), self._n, fab.n_devices),
+                    np.float64) for s in state)
+                self._result = (states, stats)
+                self._outs = self._staging = None
         return self._result
 
 
@@ -580,59 +583,71 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
                   opts: LaunchOptions, params, max_rounds, setup,
                   donate_states=False) -> ProgramLaunch:
     """Resolve, hit the round-function cache and enqueue the launch; the
-    :class:`ProgramLaunch` it returns has not waited for the device."""
-    n_dev, n = fab.n_devices, g.n
-    lc = resolve_launch(opts.config, g, prog.name, opts.objective)
-    if setup is None:
-        setup = _graph_setup(g, n_dev, undirected=prog.undirected,
-                             seed=opts.seed)
-    n_local, src_slot, dst, w, E_max = setup
-    # a resident setup (tensors) holds this process's rows, a host
-    # packing every row
-    resident = isinstance(dst, torch.Tensor)
-    rows = fab.n_local_shards if resident else n_dev
-    if (int(np.prod(dst.shape)) != rows * E_max
-            or n_local != -(-n // n_dev)):
-        raise ValueError("setup= was packed for another graph or fabric")
-    pod_axis, queues = _launch_sizing(opts, lc, fab, prog.task,
-                                      prog.default_capacity_factor, E_max)
-    caps, pods = resolve_caps(fab, queues, prog.task, E_max, opts.axis,
-                              pod_axis, clamp=True)
-    impl = resolve_route_impl(opts.route_impl if opts.route_impl is not None
-                              else queues.route_impl)
-    states0, fills = prog.init(g, params)
-    packed = [np.asarray(owner_layout(s, n_dev, f)[0], np.float32)
-              for s, f in zip(states0, fills)]
-    if prog.mode == "fixed":
-        rounds = int(params["iters"])
-    else:
-        rounds = int(max_rounds if max_rounds is not None
-                     else prog.max_rounds)
-    # no rounds, nothing to overlap (repro/sparse/program.py:743)
-    round_mode = opts.round_mode if rounds > 0 else "lockstep"
-    kparams = {k: v for k, v in params.items() if k not in prog.init_only}
-    key = (prog, n, n_dev, n_local, E_max, opts.axis, pod_axis, pods,
-           caps, impl, rounds, round_mode, len(packed),
-           tuple(sorted(kparams.items())), fab.fabric_key())
-    if donate_states:
-        key = key + ("donate",)
-    fn = _cached(key, lambda: _build_graph_fn(
-        prog, fab, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
-        round_mode, donate_states))
-    if resident:
-        if dst.device != fab.device:
-            raise ValueError(f"setup= lies on {dst.device}, the fabric on "
-                             f"{fab.device}")
-        edges, pins = [src_slot, dst, w], ()
-    else:        # only this process's rows reach its device
-        edges, pins = _to_device([fab.local_rows(np.reshape(e, (n_dev, E_max)))
-                                  for e in (src_slot, dst, w)], fab.device)
-        edges[0] = edges[0].long()
-    states, spins = _to_device([fab.local_rows(s.reshape(n_dev, n_local))
-                                for s in packed], fab.device)
-    states = list(states)                          # donation empties it
-    outs = fn(*edges, states)
-    return ProgramLaunch(fab, outs, n, len(packed), pins + spins)
+    :class:`ProgramLaunch` it returns has not waited for the device.
+    Traced as ``launch``, with ``launch.init`` (the states made on the
+    host in owner layout), ``launch.stage`` (edges and states onto the
+    device) and the rounds inside it."""
+    with trace.span("launch"):
+        n_dev, n = fab.n_devices, g.n
+        lc = resolve_launch(opts.config, g, prog.name, opts.objective)
+        if setup is None:
+            setup = _graph_setup(g, n_dev, undirected=prog.undirected,
+                                 seed=opts.seed)
+        n_local, src_slot, dst, w, E_max = setup
+        # a resident setup (tensors) holds this process's rows, a host
+        # packing every row
+        resident = isinstance(dst, torch.Tensor)
+        rows = fab.n_local_shards if resident else n_dev
+        if (int(np.prod(dst.shape)) != rows * E_max
+                or n_local != -(-n // n_dev)):
+            raise ValueError("setup= was packed for another graph or "
+                             "fabric")
+        pod_axis, queues = _launch_sizing(opts, lc, fab, prog.task,
+                                          prog.default_capacity_factor,
+                                          E_max)
+        caps, pods = resolve_caps(fab, queues, prog.task, E_max, opts.axis,
+                                  pod_axis, clamp=True)
+        impl = resolve_route_impl(opts.route_impl
+                                  if opts.route_impl is not None
+                                  else queues.route_impl)
+        with trace.span("launch.init"):
+            states0, fills = prog.init(g, params)
+            packed = [np.asarray(owner_layout(s, n_dev, f)[0], np.float32)
+                      for s, f in zip(states0, fills)]
+        if prog.mode == "fixed":
+            rounds = int(params["iters"])
+        else:
+            rounds = int(max_rounds if max_rounds is not None
+                         else prog.max_rounds)
+        # no rounds, nothing to overlap (repro/sparse/program.py:743)
+        round_mode = opts.round_mode if rounds > 0 else "lockstep"
+        kparams = {k: v for k, v in params.items()
+                   if k not in prog.init_only}
+        key = (prog, n, n_dev, n_local, E_max, opts.axis, pod_axis, pods,
+               caps, impl, rounds, round_mode, len(packed),
+               tuple(sorted(kparams.items())), fab.fabric_key())
+        if donate_states:
+            key = key + ("donate",)
+        fn = _cached(key, lambda: _build_graph_fn(
+            prog, fab, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
+            round_mode, donate_states))
+        with trace.span("launch.stage"):
+            if resident:
+                if dst.device != fab.device:
+                    raise ValueError(f"setup= lies on {dst.device}, the "
+                                     f"fabric on {fab.device}")
+                edges, pins = [src_slot, dst, w], ()
+            else:        # only this process's rows reach its device
+                edges, pins = _to_device(
+                    [fab.local_rows(np.reshape(e, (n_dev, E_max)))
+                     for e in (src_slot, dst, w)], fab.device)
+                edges[0] = edges[0].long()
+            states, spins = _to_device(
+                [fab.local_rows(s.reshape(n_dev, n_local)) for s in packed],
+                fab.device)
+            states = list(states)                  # donation empties it
+        outs = fn(*edges, states)
+        return ProgramLaunch(fab, outs, n, len(packed), pins + spins)
 
 
 class _HostFlags:
@@ -692,6 +707,9 @@ def _build_graph_fn(prog, fab, pods, n_dev, n_local, n,  # noqa: PLR0917
     pipelined loop's flag is the exchanged global count as on one
     process, and the per-round counts are summed across processes once,
     after the loop. ``fold_local`` needs one shard, so it never applies.
+
+    Each iteration of either loop, its host read included, is traced as
+    ``round``.
 
     A fixed-mode program runs the lockstep loop in either mode: it reads
     nothing on the host, so on one stream "produce at the tail of k-1,
@@ -783,45 +801,48 @@ def _build_graph_fn(prog, fab, pods, n_dev, n_local, n,  # noqa: PLR0917
             if donate_states:
                 state_in.clear()       # round 0's update lets go of them
             while r < rounds:
-                state, frontier, msgs[r], drops[r] = do_round(state, frontier)
-                r += 1
-                if prog.mode == "while":
-                    HOST_READS["reads"] += 1
-                    if not fab.global_any(frontier):
-                        break
+                with trace.span("round"):
+                    state, frontier, msgs[r], drops[r] = do_round(state,
+                                                                  frontier)
+                    r += 1
+                    if prog.mode == "while":
+                        HOST_READS["reads"] += 1
+                        if not fab.global_any(frontier):
+                            break
         else:                                      # pipelined, while
             flags = _HostFlags(rounds, dev)
             r = torch.zeros((), dtype=torch.int32, device=dev)
             if pipelined:
                 recv, meta, m, nd, gcnt = produce(state, frontier)
             for i in range(rounds):
-                if pipelined:
-                    upd = consume(recv, meta)
-                    state2, frontier2 = prog.update(ctx, state, frontier,
-                                                    upd)
-                else:
-                    state2, frontier2, m, nd = do_round(state, frontier)
-                # round 0 always runs; a later iteration is real while
-                # the frontier it consumed was non-empty
-                real = (torch.ones((), dtype=torch.bool, device=dev)
-                        if i == 0 else live)
-                state = tuple(torch.where(real, a, b,
-                                          out=b if donate_states else None)
-                              for a, b in zip(state2, state))
-                frontier = torch.where(real, frontier2, frontier)
-                msgs[i] = torch.where(real, m, 0)
-                drops[i] = torch.where(real, nd, 0)
-                r = r + real.to(torch.int32)
-                if i + 1 == rounds:
-                    break
-                if pipelined:
-                    recv, meta, m, nd, gcnt = produce(state, frontier)
-                    live = gcnt[0] > 0
-                else:
-                    live = frontier.any()
-                flags.post(i, live)
-                if i >= 1 and not flags.read(i - 1):
-                    break                  # iteration i was the unreal one
+                with trace.span("round"):
+                    if pipelined:
+                        upd = consume(recv, meta)
+                        state2, frontier2 = prog.update(ctx, state, frontier,
+                                                        upd)
+                    else:
+                        state2, frontier2, m, nd = do_round(state, frontier)
+                    # round 0 always runs; a later iteration is real while
+                    # the frontier it consumed was non-empty
+                    real = (torch.ones((), dtype=torch.bool, device=dev)
+                            if i == 0 else live)
+                    state = tuple(torch.where(real, a, b,
+                                              out=b if donate_states else None)
+                                  for a, b in zip(state2, state))
+                    frontier = torch.where(real, frontier2, frontier)
+                    msgs[i] = torch.where(real, m, 0)
+                    drops[i] = torch.where(real, nd, 0)
+                    r = r + real.to(torch.int32)
+                    if i + 1 == rounds:
+                        break
+                    if pipelined:
+                        recv, meta, m, nd, gcnt = produce(state, frontier)
+                        live = gcnt[0] > 0
+                    else:
+                        live = frontier.any()
+                    flags.post(i, live)
+                    if i >= 1 and not flags.read(i - 1):
+                        break              # iteration i was the unreal one
         msum = msgs.sum(1, dtype=torch.int32)
         dsum = drops.sum(1, dtype=torch.int32)
         if xchg is not None:                       # once, after the loop
