@@ -40,6 +40,7 @@ per-round message and drop counts equal the executable's exactly.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -99,9 +100,64 @@ class Ctx:
 
 
 @dataclass(frozen=True)
+class InitCtx:
+    """What a device init (:attr:`TaskProgram.init_sharded`) sees: the
+    launch's sizes, its full params (``init_only`` ones included), the
+    fabric's device, the shard rows ``[lo, hi)`` this process holds and
+    their packed edges ``src_slot`` (int64) and ``dst`` (int32, -1 on
+    padding), ``[hi - lo, E_max]`` on that device."""
+    n: int
+    n_dev: int
+    n_local: int
+    lo: int
+    hi: int
+    params: Mapping
+    device: torch.device
+    src_slot: torch.Tensor
+    dst: torch.Tensor
+
+    def full(self, value: float, pad: Optional[float] = None
+             ) -> torch.Tensor:
+        """``[hi - lo, n_local]`` float32 of ``value``, padding slots (past
+        vertex ``n``) ``pad`` when given."""
+        t = torch.full((self.hi - self.lo, self.n_local), value,
+                       dtype=torch.float32, device=self.device)
+        if pad is not None and self.n_local:
+            # only the last slot pads: shards from ``first`` on
+            first = self.n - (self.n_local - 1) * self.n_dev
+            t[max(first - self.lo, 0):, -1] = pad
+        return t
+
+    def vertex_ids(self) -> torch.Tensor:
+        """``[hi - lo, n_local]`` int64: the global vertex of each slot,
+        ``slot * n_dev + shard`` (``>= n`` on padding)."""
+        slot = torch.arange(self.n_local, device=self.device)
+        shard = torch.arange(self.lo, self.hi, device=self.device)
+        return slot[None, :] * self.n_dev + shard[:, None]
+
+    def put(self, state: torch.Tensor, v: int, value: float) -> None:
+        """Set vertex ``v``'s slot of ``state`` when this process holds
+        it."""
+        shard, slot = v % self.n_dev, v // self.n_dev
+        if self.lo <= shard < self.hi:
+            state[shard - self.lo, slot] = value
+
+    def edge_counts(self) -> torch.Tensor:
+        """``[hi - lo, n_local]`` float32: the packed edges whose source
+        is each slot (out-degree; in + out on an undirected packing)."""
+        count = torch.zeros((self.hi - self.lo, self.n_local),
+                            dtype=torch.int32, device=self.device)
+        count.scatter_add_(1, self.src_slot, (self.dst >= 0).to(torch.int32))
+        return count.to(torch.float32)
+
+
+@dataclass(frozen=True)
 class TaskProgram:
     """Declarative spec of one app. Graph programs: ``init`` runs on the
-    host (numpy, global order); ``frontier0`` / ``payload`` / ``update``
+    host (numpy, global order) and specifies the initial states;
+    ``init_sharded``, when given, makes the same states on the device,
+    already in owner layout, and launches use it in place of ``init``;
+    ``frontier0`` / ``payload`` / ``update``
     run on ``[S, ...]`` tensors. ``mode="while"`` runs while any frontier
     is non-empty (and ``r < max_rounds``), ``mode="fixed"`` runs
     ``params["iters"]`` rounds. ``init_only`` params feed ``init`` only
@@ -121,6 +177,9 @@ class TaskProgram:
     max_rounds: int = 128
     init_only: Tuple[str, ...] = ()
     init: Optional[Callable] = None        # (g, params) -> (states, fills)
+    # (InitCtx) -> states [hi - lo, n_local] float32, bit-identical to
+    # init's in owner layout (this process's rows)
+    init_sharded: Optional[Callable] = None
     frontier0: Optional[Callable] = None   # (ctx, state) -> bool [S, n_local]
     payload: Optional[Callable] = None     # (ctx, state, src_slot, w) -> vals
     update: Optional[Callable] = None      # (ctx, state, frontier, upd)
@@ -156,6 +215,25 @@ def from_owner_layout(y_sharded: np.ndarray, n: int, n_dev: int):
     n_local = -(-n // n_dev)
     g = np.arange(n)
     return y_sharded[(g % n_dev) * n_local + g // n_dev]
+
+
+def owner_rows(x: torch.Tensor, n_dev: int, fill: float) -> torch.Tensor:
+    """:func:`owner_layout` of tensors, one transpose: ``[..., n]`` in
+    global order -> ``[..., n_dev, n_local]`` (contiguous), padding
+    slots ``fill``."""
+    n = x.shape[-1]
+    n_local = -(-n // n_dev)
+    pad = n_local * n_dev - n
+    if pad:
+        x = torch.cat([x, x.new_full((*x.shape[:-1], pad), fill)], -1)
+    return x.reshape(*x.shape[:-1], n_local, n_dev).transpose(-1, -2
+                                                            ).contiguous()
+
+
+def global_order(y: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`from_owner_layout` of tensors, one transpose: ``[...,
+    n_dev, n_local]`` -> ``[..., n]``."""
+    return y.transpose(-1, -2).reshape(*y.shape[:-2], -1)[..., :n]
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +334,9 @@ def _resolve_queues(opts: LaunchOptions, task: str, default_factor: float
 # the round-function cache
 # ---------------------------------------------------------------------------
 
-# CACHE_STATS and HOST_READS are ``core/trace.py``'s, re-exported here
-_CACHE: Dict[tuple, Callable] = {}
+# CACHE_STATS and HOST_READS are ``core/trace.py``'s, re-exported here;
+# a graph key holds its round function and its results' host buffers
+_CACHE: Dict[tuple, object] = {}
 
 
 def cache_stats() -> Dict[str, int]:
@@ -520,6 +599,54 @@ def _to_device(arrays, device):
     return [p.to(device, non_blocking=True) for p in pins], tuple(pins)
 
 
+def _initial_states(prog: TaskProgram, g, params, ic: InitCtx):
+    """A launch's input states, ``[hi - lo, n_local]`` float32 on
+    ``ic.device``, and the staging they need until the launch's event:
+    ``prog.init_sharded`` makes them there; a program with only ``init``
+    has its arrays copied in as float32 in global order and laid out by
+    :func:`owner_rows` there."""
+    if prog.init_sharded is not None:
+        return list(prog.init_sharded(ic)), ()
+    states0, fills = prog.init(g, params)
+    host, pins = _to_device([np.asarray(s, np.float32) for s in states0],
+                            ic.device)
+    return [owner_rows(s, ic.n_dev, f)[ic.lo:ic.hi].contiguous()
+            for s, f in zip(host, fills)], pins
+
+
+class _Readback:
+    """The host buffers of one shape class's results, kept and reused by
+    every launch's :meth:`ProgramLaunch.result`: pinned for a source on
+    the card, so one non-blocking copy a tensor and one wait bring them
+    back. The lock keeps two results from sharing the buffers at once."""
+
+    def __init__(self):
+        self._bufs: Dict[tuple, torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def _buf(self, t: torch.Tensor) -> torch.Tensor:
+        key = (tuple(t.shape), t.dtype, t.device.type)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=t.device.type == "cuda")
+        return buf
+
+    def read(self, states: torch.Tensor, counts: torch.Tensor):
+        """``states [k, n]`` as ``k`` fresh float64 numpy arrays (the
+        float32 values cast exactly) and ``counts`` as int64 numpy."""
+        with self._lock:
+            bufs = [self._buf(t) for t in (states, counts)]
+            for buf, t in zip(bufs, (states, counts)):
+                buf.copy_(t, non_blocking=True)
+            for dev in {t.device for t in (states, counts)
+                        if t.device.type == "cuda"}:
+                torch.cuda.current_stream(dev).synchronize()
+            host = bufs[0].numpy()
+            return (tuple(row.astype(np.float64) for row in host),
+                    bufs[1].numpy().astype(np.int64))
+
+
 class ProgramLaunch:
     """One graph-program launch in flight: a device future
     (``repro/sparse/program.py:513-570``).
@@ -528,17 +655,21 @@ class ProgramLaunch:
       completed (always true on the CPU);
     * :meth:`block` waits for the device (``event.synchronize()``); a
       fault of the launch surfaces here and poisons this launch only;
-    * :meth:`result` blocks, copies to the host and unpacks:
-      ``(state_arrays, AppStats)``, bit-identical to :func:`run_program`.
-      Idempotent; the device tensors and the staging are released on the
-      first call. On a distributed fabric its first call gathers the
-      states from every process (a collective: every process calls it,
-      in the same order as its other launches')."""
+    * :meth:`result` unpacks the states to global order on the device
+      (:func:`global_order`), copies them and the round counts once into
+      the shape class's reused host buffers (:class:`_Readback`), waits,
+      and returns ``(state_arrays, AppStats)``, each state a fresh
+      float64 array, bit-identical to :func:`run_program`. Idempotent;
+      the device tensors and the staging are released on the first call.
+      On a distributed fabric its first call gathers the states from
+      every process (a collective: every process calls it, in the same
+      order as its other launches')."""
 
     def __init__(self, fab: Fabric, outs, n: int, n_states: int,
-                 staging=()):
+                 staging=(), *, readback: _Readback):
         self._fab, self._outs, self._staging = fab, outs, staging
         self._n, self._n_states = n, n_states
+        self._readback = readback
         self._result = None
         self._trace_root = trace.current_root()   # the launch's span
         self._event = None
@@ -559,21 +690,25 @@ class ProgramLaunch:
     def result(self):
         if self._result is None:
             with trace.span("result", root=self._trace_root):
-                self.block()
                 outs = self._outs
                 state, (r, msgs, drops) = outs[:self._n_states], outs[-3:]
-                r = int(r)
-                stats = AppStats(
-                    rounds=r,
-                    messages=msgs[:r].cpu().numpy().astype(np.int64),
-                    drops=drops[:r].cpu().numpy().astype(np.int64))
                 fab = self._fab
                 if fab.is_multiprocess:      # every process: global states
                     state = fab.gather_shards(torch.stack(state, 1).cpu()
-                                              ).unbind(1)
-                states = tuple(np.asarray(from_owner_layout(
-                    s.reshape(-1).cpu().numpy(), self._n, fab.n_devices),
-                    np.float64) for s in state)
+                                              ).transpose(0, 1)
+                else:
+                    state = torch.stack(state)
+                # the pipelined loop counts its rounds on the device
+                counts = [msgs, drops] + ([r.reshape(1)]
+                                          if torch.is_tensor(r) else [])
+                states, counts = self._readback.read(
+                    global_order(state, self._n).contiguous(),
+                    torch.cat(counts))
+                n_rounds = len(msgs)
+                r = int(counts[-1]) if torch.is_tensor(r) else int(r)
+                stats = AppStats(
+                    rounds=r, messages=counts[:r],
+                    drops=counts[n_rounds:n_rounds + r])
                 self._result = (states, stats)
                 self._outs = self._staging = None
         return self._result
@@ -584,9 +719,12 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
                   donate_states=False) -> ProgramLaunch:
     """Resolve, hit the round-function cache and enqueue the launch; the
     :class:`ProgramLaunch` it returns has not waited for the device.
-    Traced as ``launch``, with ``launch.init`` (the states made on the
-    host in owner layout), ``launch.stage`` (edges and states onto the
-    device) and the rounds inside it."""
+    Traced as ``launch``, with ``launch.stage`` (the edges of a host
+    packing onto the device; nothing for a resident setup),
+    ``launch.init`` (the states made on the device in owner layout:
+    :func:`_initial_states`) and the rounds inside it. The counters
+    ``init_on_card`` and ``init_on_host`` count the launches whose
+    states a device init made and those whose ``init`` ran on the host."""
     with trace.span("launch"):
         n_dev, n = fab.n_devices, g.n
         lc = resolve_launch(opts.config, g, prog.name, opts.objective)
@@ -610,27 +748,6 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
         impl = resolve_route_impl(opts.route_impl
                                   if opts.route_impl is not None
                                   else queues.route_impl)
-        with trace.span("launch.init"):
-            states0, fills = prog.init(g, params)
-            packed = [np.asarray(owner_layout(s, n_dev, f)[0], np.float32)
-                      for s, f in zip(states0, fills)]
-        if prog.mode == "fixed":
-            rounds = int(params["iters"])
-        else:
-            rounds = int(max_rounds if max_rounds is not None
-                         else prog.max_rounds)
-        # no rounds, nothing to overlap (repro/sparse/program.py:743)
-        round_mode = opts.round_mode if rounds > 0 else "lockstep"
-        kparams = {k: v for k, v in params.items()
-                   if k not in prog.init_only}
-        key = (prog, n, n_dev, n_local, E_max, opts.axis, pod_axis, pods,
-               caps, impl, rounds, round_mode, len(packed),
-               tuple(sorted(kparams.items())), fab.fabric_key())
-        if donate_states:
-            key = key + ("donate",)
-        fn = _cached(key, lambda: _build_graph_fn(
-            prog, fab, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
-            round_mode, donate_states))
         with trace.span("launch.stage"):
             if resident:
                 if dst.device != fab.device:
@@ -642,12 +759,34 @@ def _launch_graph(prog: TaskProgram, g, fab: Fabric,  # noqa: PLR0917
                     [fab.local_rows(np.reshape(e, (n_dev, E_max)))
                      for e in (src_slot, dst, w)], fab.device)
                 edges[0] = edges[0].long()
-            states, spins = _to_device(
-                [fab.local_rows(s.reshape(n_dev, n_local)) for s in packed],
-                fab.device)
-            states = list(states)                  # donation empties it
-        outs = fn(*edges, states)
-        return ProgramLaunch(fab, outs, n, len(packed), pins + spins)
+        with trace.span("launch.init"):
+            lo, hi = fab.local_shards
+            states, spins = _initial_states(prog, g, params, InitCtx(
+                n, n_dev, n_local, lo, hi, params, fab.device, edges[0],
+                edges[1]))
+        trace.count("init_on_card" if prog.init_sharded is not None
+                    else "init_on_host", 1)
+        if prog.mode == "fixed":
+            rounds = int(params["iters"])
+        else:
+            rounds = int(max_rounds if max_rounds is not None
+                         else prog.max_rounds)
+        # no rounds, nothing to overlap (repro/sparse/program.py:743)
+        round_mode = opts.round_mode if rounds > 0 else "lockstep"
+        kparams = {k: v for k, v in params.items()
+                   if k not in prog.init_only}
+        key = (prog, n, n_dev, n_local, E_max, opts.axis, pod_axis, pods,
+               caps, impl, rounds, round_mode, len(states),
+               tuple(sorted(kparams.items())), fab.fabric_key())
+        if donate_states:
+            key = key + ("donate",)
+        fn, readback = _cached(key, lambda: (_build_graph_fn(
+            prog, fab, pods, n_dev, n_local, n, caps, kparams, rounds, impl,
+            round_mode, donate_states), _Readback()))
+        n_states = len(states)
+        outs = fn(*edges, states)                  # donation empties it
+        return ProgramLaunch(fab, outs, n, n_states, pins + tuple(spins),
+                             readback=readback)
 
 
 class _HostFlags:
@@ -958,10 +1097,9 @@ def program_rounds(prog: TaskProgram, g, n_dev, caps,  # noqa: PLR0917
 
     ctx = Ctx(n=n, n_dev=n_dev, params=kparams,
               gsum=Fabric.fake(n_dev, device="cpu").gsum)
-    states0, fills = prog.init(g, params)
-    state = tuple(torch.from_numpy(np.asarray(
-        owner_layout(s, n_dev, f)[0], np.float32)).view(n_dev, n_local)
-        for s, f in zip(states0, fills))
+    state = tuple(_initial_states(prog, g, params, InitCtx(
+        n, n_dev, n_local, 0, n_dev, params, torch.device("cpu"), src_t,
+        torch.from_numpy(dst).view(n_dev, E_max)))[0])
     frontier = prog.frontier0(ctx, state)
     if prog.mode == "fixed":
         rounds = int(params["iters"])

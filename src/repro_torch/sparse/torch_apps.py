@@ -121,32 +121,69 @@ def _histogram_local_reduce(data, dest, vals, n_items, device):
     return ops.histogram(ids, n_items).cpu().numpy().astype(np.float32)
 
 
+# Each graph program's initial states twice: ``_*_init`` on the host in
+# global order (the specification, and the reference's), ``_*_on_card``
+# on the launch's device in owner layout, bit-identical to the first laid
+# out and cast to float32 (tests/test_torch_init.py).
+
 def _dist_init(g, params):
     dist = np.full(g.n, np.inf)
     dist[int(params["root"])] = 0.0
     return (dist,), (np.inf,)
 
 
-def _multi_root_init(g, params):
-    """Tenant-column init (``repro/sparse/jax_apps.py:156-173``): ``g`` is
-    a tenant-expanded graph (vertex ``t * n + v`` is base vertex ``v`` in
-    tenant ``t``'s column, :func:`repro_torch.serve.batching.tenant_graph`)
-    and ``params["roots"]`` holds one root per tenant. A root outside
-    ``[0, n)`` raises: it would seed another tenant's column."""
-    roots = params["roots"]
-    n = g.n // len(roots)
-    dist = np.full(g.n, np.inf)
+def _dist_on_card(ic):
+    root = int(ic.params["root"])
+    if not -ic.n <= root < ic.n:        # numpy's rule for the host init
+        raise IndexError(f"index {root} is out of bounds for axis 0 with "
+                         f"size {ic.n}")
+    dist = ic.full(float("inf"))
+    ic.put(dist, root % ic.n, 0.0)
+    return (dist,)
+
+
+def _tenant_roots(roots, n_total):
+    """``(n, roots as ints)`` of a tenant-expanded graph of ``n_total``
+    vertices; a root outside ``[0, n)`` raises: it would seed another
+    tenant's column."""
+    n = n_total // len(roots)
+    out = []
     for t, root in enumerate(roots):
         r = int(root)
         if not 0 <= r < n:
             raise ValueError(
                 f"root {root} out of range [0, {n}) for tenant column {t}")
+        out.append(r)
+    return n, out
+
+
+def _multi_root_init(g, params):
+    """Tenant-column init (``repro/sparse/jax_apps.py:156-173``): ``g`` is
+    a tenant-expanded graph (vertex ``t * n + v`` is base vertex ``v`` in
+    tenant ``t``'s column, :func:`repro_torch.serve.batching.tenant_graph`)
+    and ``params["roots"]`` holds one root per tenant."""
+    n, roots = _tenant_roots(params["roots"], g.n)
+    dist = np.full(g.n, np.inf)
+    for t, r in enumerate(roots):
         dist[t * n + r] = 0.0
     return (dist,), (np.inf,)
 
 
+def _multi_root_on_card(ic):
+    n, roots = _tenant_roots(ic.params["roots"], ic.n)
+    dist = ic.full(float("inf"))
+    for t, r in enumerate(roots):
+        ic.put(dist, t * n + r, 0.0)
+    return (dist,)
+
+
 def _label_init(g, params):
     return (np.arange(g.n, dtype=np.float64),), (np.inf,)
+
+
+def _label_on_card(ic):
+    vid = ic.vertex_ids()
+    return (torch.where(vid < ic.n, vid.to(torch.float32), float("inf")),)
 
 
 def _finite_frontier(ctx, state):
@@ -175,35 +212,47 @@ def _min_update(ctx, state, frontier, upd):
 
 
 BFS = TaskProgram(name="bfs", reduce_op="min", payload=_hops_payload,
-                  init=_dist_init, frontier0=_finite_frontier,
-                  update=_min_update, init_only=("root",))
+                  init=_dist_init, init_sharded=_dist_on_card,
+                  frontier0=_finite_frontier, update=_min_update,
+                  init_only=("root",))
 
 SSSP = TaskProgram(name="sssp", reduce_op="min", payload=_weight_payload,
-                   init=_dist_init, frontier0=_finite_frontier,
-                   update=_min_update, max_rounds=256, init_only=("root",))
+                   init=_dist_init, init_sharded=_dist_on_card,
+                   frontier0=_finite_frontier, update=_min_update,
+                   max_rounds=256, init_only=("root",))
 
 # the serving tier's fused multi-root launches: BFS's and SSSP's rules,
 # one root per tenant column; roots are init-only, so every batch of one
 # shape class reuses one round function
 BATCHED_BFS = TaskProgram(name="bfs_batched", reduce_op="min",
                           payload=_hops_payload, init=_multi_root_init,
+                          init_sharded=_multi_root_on_card,
                           frontier0=_finite_frontier, update=_min_update,
                           init_only=("roots",))
 
 BATCHED_SSSP = TaskProgram(name="sssp_batched", reduce_op="min",
                            payload=_weight_payload, init=_multi_root_init,
+                           init_sharded=_multi_root_on_card,
                            frontier0=_finite_frontier, update=_min_update,
                            max_rounds=256, init_only=("roots",))
 
 WCC = TaskProgram(name="wcc", reduce_op="min", payload=_label_payload,
-                  init=_label_init, frontier0=_all_frontier,
-                  update=_min_update, undirected=True)
+                  init=_label_init, init_sharded=_label_on_card,
+                  frontier0=_all_frontier, update=_min_update,
+                  undirected=True)
 
 
 def _pr_init(g, params):
     deg = g.degrees().astype(np.float64)
     rank = np.full(g.n, 1.0 / g.n)
     return (rank, deg, np.ones(g.n)), (0.0, 0.0, 0.0)
+
+
+def _pr_on_card(ic):
+    # the packed edges' counts are g.degrees(); the float32 fill of 1/n
+    # rounds as numpy's float64 -> float32 cast does
+    return (ic.full(1.0 / ic.n, pad=0.0), ic.edge_counts(),
+            ic.full(1.0, pad=0.0))
 
 
 def _pr_payload(ctx, state, src_slot, w):
@@ -231,7 +280,8 @@ def _pr_update(ctx, state, frontier, upd):
 
 PAGERANK = TaskProgram(name="pagerank", reduce_op="add", mode="fixed",
                        active="all", payload=_pr_payload, init=_pr_init,
-                       frontier0=_all_frontier, update=_pr_update)
+                       init_sharded=_pr_on_card, frontier0=_all_frontier,
+                       update=_pr_update)
 
 SPMV = TaskProgram(name="spmv", reduce_op="add", mode="single",
                    default_capacity_factor=2.0, stream=_spmv_stream)
@@ -246,6 +296,11 @@ def _kcore_init(g, params):
     # undirected view: degree counts each stored direction (in + out)
     deg = (g.degrees() + g.transpose().degrees()).astype(np.float64)
     return (deg, np.ones(g.n)), (0.0, 0.0)
+
+
+def _kcore_on_card(ic):
+    # the undirected packing's counts are in + out degrees
+    return ic.edge_counts(), ic.full(1.0, pad=0.0)
 
 
 def _kcore_frontier0(ctx, state):
@@ -267,7 +322,8 @@ def _kcore_update(ctx, state, frontier, upd):
 
 KCORE = TaskProgram(name="kcore", reduce_op="add", undirected=True,
                     payload=_unit_payload, init=_kcore_init,
-                    frontier0=_kcore_frontier0, update=_kcore_update)
+                    init_sharded=_kcore_on_card, frontier0=_kcore_frontier0,
+                    update=_kcore_update)
 
 
 PROGRAMS = {p.name: p for p in (BFS, SSSP, WCC, PAGERANK, SPMV, HISTOGRAM,

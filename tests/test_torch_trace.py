@@ -234,7 +234,7 @@ def test_a_graph_launch_records_its_phases(app, mode):
     (root,) = [r for r in recs if r.parent is None and r.name == "launch"]
     assert {r.root for r in recs} == {root.id}
     assert [r.name for r in recs if r.parent == root.id][:2] == [
-        "launch.init", "launch.stage"]
+        "launch.stage", "launch.init"]
     rounds = by_name(recs, "round")
     assert all(r.parent == root.id for r in rounds)
     wires = by_name(recs, "wire")
@@ -247,11 +247,40 @@ def test_a_graph_launch_records_its_phases(app, mode):
         assert len(rounds) == stats.rounds
         assert [w.parent for w in wires] == [r.id for r in rounds]
         assert trace.counters() == {"wire_slots": 8 * 8 * cap
-                                    * stats.rounds}
+                                    * stats.rounds, "init_on_card": 1}
     else:    # the gated loop: an unreal last iteration, a wire produced
         assert len(rounds) >= stats.rounds          # ahead of its round
         assert {w.parent for w in wires} >= {r.id for r in rounds}
         assert trace.counters()["wire_slots"] % (8 * 8 * cap) == 0
+        assert trace.counters()["init_on_card"] == 1
+
+
+@pytest.mark.parametrize("resident", [False, True])
+def test_every_launch_counts_its_init_on_card(resident):
+    """Three launches, each with one ``launch`` root holding
+    ``launch.stage`` and ``launch.init`` and one ``result`` of its root;
+    each counts once in ``init_on_card`` and none in ``init_on_host``."""
+    g = datasets.rmat(8, 8, seed=1)
+    fab = Fabric.fake(8, device="cpu")
+    setup = program._graph_setup(g, 8)
+    if resident:
+        setup = program.resident_setup(setup, "cpu")
+    with trace.recording():
+        for root in (0, 3, 5):
+            program.launch_program(PROGRAMS["bfs"], g, fab,
+                                   params={"root": root},
+                                   setup=setup).result()
+        counts = trace.counters()
+    recs = trace.records()
+    roots = [r for r in recs if r.parent is None and r.name == "launch"]
+    assert len(roots) == 3
+    for root in roots:
+        kids = [r.name for r in recs if r.parent == root.id]
+        assert kids.count("launch.stage") == kids.count("launch.init") == 1
+        (result,) = [r for r in by_name(recs, "result")
+                     if r.root == root.id]
+        assert result.parent is None
+    assert counts["init_on_card"] == 3 and "init_on_host" not in counts
 
 
 def test_a_stream_program_traces_its_wire():
